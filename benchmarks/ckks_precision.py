@@ -13,20 +13,16 @@ exact slot products in float64, and max_err = max |decoded - model| over
 all slots and trials. precision_bits = -log2(max_err / max|model|)
 (relative precision of the worst slot).
 
-Writes CKKS_PRECISION_r05.json at the repo root when run as a script;
-``run()`` is importable so the test suite asserts the same bounds at the
-same configuration on the CPU backend.
+Writes results/ckks_precision.json under the repo root when run as a
+script, one session per device kind; ``run()`` is importable so the test
+suite asserts the same bounds at the same configuration on the CPU.
 """
 
 import json
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/troy_tpu_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-
-import numpy as np  # noqa: E402
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -104,35 +100,32 @@ def run(n=16384, q_bits=(60, 40, 40, 40, 40, 60), scale=2.0 ** 40,
 
 def main():
     import jax
+    from troy_tpu.utils import jax_cache
+    jax_cache.enable()
     trials = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     rows, meta = run(trials=trials)
-    meta["device"] = str(jax.devices()[0])
+    dev = jax.devices()[0]
+    meta["device"] = dict(platform=dev.platform, kind=dev.device_kind,
+                          count=len(jax.devices()))
     print(f"\nCKKS precision vs depth (n={meta['n']}, "
-          f"q={meta['q_bits']}, scale 2^40, {trials} trials):")
+          f"q={meta['q_bits']}, scale 2^40, {trials} trials, "
+          f"{dev.device_kind}):")
     print(f"  {'stage':28s} {'level':>5s} {'scale':>10s} "
           f"{'max err':>10s} {'prec bits':>9s}")
     for r in rows:
         print(f"  {r['stage']:28s} {r['level']:5d} "
               f"2^{np.log2(r['scale']):.1f}  {r['max_err']:10.3e} "
               f"{r['precision_bits']:9.1f}")
-    # Merge per-backend sessions into the artifact (the arithmetic is
-    # exact integer math so backends should agree; recording both PROVES
-    # it rather than asserting it).
-    platform = jax.devices()[0].platform
-    out = os.path.join(REPO, "CKKS_PRECISION_r05.json")
+    # one session per device kind, merged into the artifact (the
+    # arithmetic is exact integer math, so devices should agree;
+    # recording each proves it rather than asserting it)
+    out = os.path.join(REPO, "results", "ckks_precision.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     merged = {"sessions": {}}
     if os.path.exists(out):
-        try:
-            with open(out) as f:
-                prev = json.load(f)
-            if "sessions" in prev:
-                merged["sessions"].update(prev["sessions"])
-            elif "rows" in prev:     # legacy flat layout = the CPU session
-                merged["sessions"]["cpu"] = dict(meta=prev["meta"],
-                                                 rows=prev["rows"])
-        except (ValueError, OSError):
-            pass
-    merged["sessions"][platform] = dict(meta=meta, rows=rows)
+        with open(out) as f:
+            merged["sessions"].update(json.load(f).get("sessions", {}))
+    merged["sessions"][dev.device_kind] = dict(meta=meta, rows=rows)
     with open(out, "w") as f:
         json.dump(merged, f, indent=1)
     print(f"wrote {out}")

@@ -13,11 +13,7 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/troy_tpu_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-
-import numpy as np  # noqa: E402
+import numpy as np
 
 
 def main():
@@ -25,6 +21,8 @@ def main():
     import troy_tpu as T
     from troy_tpu import prng as rnd
     from troy_tpu.app.linear import Conv2dHelper
+    from troy_tpu.utils import jax_cache
+    jax_cache.enable()
 
     args = [int(a) for a in sys.argv[1:]]
     bs, ci, co, H, W, kh, kw = (args + [1, 16, 32, 28, 28, 3, 3][len(args):])

@@ -22,11 +22,7 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/troy_tpu_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-
-import numpy as np  # noqa: E402
+import numpy as np
 
 
 def main():
@@ -34,6 +30,8 @@ def main():
     import troy_tpu as T
     from troy_tpu import prng as rnd
     from troy_tpu.app.linear import MatmulHelper
+    from troy_tpu.utils import jax_cache
+    jax_cache.enable()
 
     bs = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     ind = int(sys.argv[2]) if len(sys.argv) > 2 else 128

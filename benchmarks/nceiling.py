@@ -5,14 +5,15 @@ The reference caps the polynomial degree at N <= 131072
 (reference: src/utils/defines.h:30 SEAL_POLY_MOD_DEGREE_MAX) because its
 scaling unit is one GPU. Our coefficient-sharded regime splits the
 polynomial axis over a device mesh (parallel/sharding.py
-coeff_sharded_multiply_relin): the 4-step MXU NTT partitions its stage
-matmuls across devices and GSPMD inserts the inter-stage collectives, so
-the degree ceiling becomes a cluster-size question, not a chip one.
+coeff_sharded_multiply_relin): GSPMD partitions the coefficient axis and
+inserts the collectives the NTT needs across shards, so the degree
+ceiling becomes a cluster-size question, not a one-device one.
 
 This script executes encrypt -> coefficient-sharded multiply+relinearize
 -> decrypt at n=262144 on the virtual 8-device CPU mesh, asserts the
 result is WORD-FOR-WORD identical to a single-device replay, decrypts to
-the exact expected product, and records the run in NCEILING_r03.json.
+the exact expected product, and records the run in
+results/nceiling.json.
 
 Usage: python benchmarks/nceiling.py [n]   (default 262144)
 """
@@ -25,15 +26,14 @@ import time
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
                            " --xla_force_host_platform_device_count=8")
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/troy_tpu_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import jax                                    # noqa: E402
 jax.config.update("jax_platforms", "cpu")
+from troy_tpu.utils import jax_cache          # noqa: E402
+jax_cache.enable()
 import numpy as np                            # noqa: E402
 
 import troy_tpu as T                          # noqa: E402
@@ -91,8 +91,8 @@ def main():
     elapsed = time.time() - t0
     print(f"decrypt bit-exact: {elapsed:.1f}s total", flush=True)
 
-    # HBM footprint for a real v5e slice (16 GB/chip): per-device slice
-    # sizes under coefficient sharding over 8 chips
+    # memory footprint: per-device slice sizes under coefficient sharding
+    # over 8 devices
     k = ctx.first_context_data.limbs
     ct_bytes = 2 * k * n * 8
     key_bytes = (len(ctx.key_context_data.coeff_values) - 1) * 2 * \
@@ -112,7 +112,9 @@ def main():
                  "(defines.h:30), bit-exact vs a single-device replay on "
                  "the virtual 8-device mesh"),
     }
-    with open(os.path.join(REPO, "NCEILING_r03.json"), "w") as f:
+    out = os.path.join(REPO, "results", "nceiling.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps(record), flush=True)
 

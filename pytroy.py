@@ -2,7 +2,7 @@
 (reference: binder/binder.cu PYBIND11_MODULE(pytroy)).
 
 ``import pytroy`` from the repo root gives reference users the exact
-binder API, backed by the TPU-native framework."""
+binder API, backed by troy_tpu."""
 
 from troy_tpu.compat import *  # noqa: F401,F403
 from troy_tpu.compat import (  # noqa: F401

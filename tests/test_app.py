@@ -291,9 +291,9 @@ def test_conv2d_block_search_matches_reference():
 
 
 def test_tile_contraction_chunked_matches_unchunked(monkeypatch):
-    """The HBM-guard chunking of the ct x pt tile contraction must be
-    bit-identical to the single-dispatch path (it exists so the reference
-    conv2d config 1x64x256 56x56 k3 fits in HBM)."""
+    """The live-set chunking of the ct x pt tile contraction must be
+    bit-identical to the single-dispatch path (it bounds the memory of the
+    reference conv2d config 1x64x256 56x56 k3)."""
     import numpy as np
     import troy_tpu as T
     from troy_tpu import prng as rnd

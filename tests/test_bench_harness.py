@@ -1,76 +1,74 @@
-"""bench.py harness logic — the parts that guard the published headline.
-
-The driver runs bench.py unattended on real hardware; these tests pin the
-host-side guard rails: the floor fallback must never clamp a real
-measurement UPWARD with a stale hand count (round-5 code review), and the
-child-session protocol line must parse.
-"""
+"""The measurement harness that chip_smoke.py and bench.py share
+(troy_tpu.utils.profiling): the window reduction, the device refusal,
+and chip_smoke.py's result line. The scripts need a GPU to run; these
+parts are checked on any platform."""
 
 import importlib.util
 import json
 import os
-import sys
+import types
+
+import pytest
+
+from troy_tpu.utils import profiling
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _load_bench():
-    path = os.path.join(os.path.dirname(__file__), "..", "bench.py")
-    spec = importlib.util.spec_from_file_location("bench_mod", path)
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_mod", os.path.join(REPO, f"{name}.py"))
     m = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(m)
     return m
 
 
-class _FailingJit:
-    """Stands in for a jitted fn whose remote cost_analysis is down."""
-
-    def lower(self, *a):
-        raise RuntimeError("remote_compile: connection dropped")
+def _device(platform, kind):
+    return types.SimpleNamespace(platform=platform, device_kind=kind)
 
 
-def test_floor_fallback_uses_recorded_compiler_count(monkeypatch):
-    bench = _load_bench()
-    monkeypatch.setattr(bench.time, "sleep", lambda s: None)
-    for bits, flops in bench.KNOWN_FLOPS.items():
-        bench.INTERNAL_BITS = bits
-        floor_ms, got_flops, src = bench.derive_floor_ms(_FailingJit(), ())
-        assert src == f"recorded-compiler-count-{bits}b"
-        assert got_flops == flops
-        # the recorded count must be a LOWER bound than the stale hand
-        # model (63.9 G) — the hand model would clamp real measurements UP
-        assert floor_ms < bench.HAND_MXU_FLOPS / bench.V5E_PEAK_OPS * 1e3
-        assert abs(floor_ms - flops / bench.V5E_PEAK_OPS * 1e3) < 1e-9
-    # an unrecorded width uses the largest recorded count BELOW it (a
-    # valid lower bound: program size grows with base width) ...
-    bench.INTERNAL_BITS = 50
-    floor_ms, got_flops, src = bench.derive_floor_ms(_FailingJit(), ())
-    assert src == "recorded-compiler-count-48b"
-    assert got_flops == bench.KNOWN_FLOPS[48]
-    # ... and below every recorded width the value is reported unclamped
-    # rather than clamped UP by a wider mode's count
-    bench.INTERNAL_BITS = 34
-    floor_ms, got_flops, src = bench.derive_floor_ms(_FailingJit(), ())
-    assert src == "no-floor" and floor_ms == 0.0
+@pytest.mark.parametrize("window_s,median,lo,hi", [
+    ((0.002, 0.001, 0.004), 2.0, 1.0, 4.0),
+    ((0.003, 0.003, 0.001, 0.002, 0.005), 3.0, 1.0, 5.0),
+])
+def test_time_ms_reduces_windows_to_median_min_max(monkeypatch, window_s,
+                                                   median, lo, hi):
+    """Each window's length, over its calls, in ms; the median and the
+    extremes of the windows (the fake clock ticks once per window start
+    and end)."""
+    ticks = []
+    for w in window_s:
+        ticks += [0.0, w * 2]           # 2 calls per window
+    clock = iter(ticks)
+    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
+    got = profiling.time_ms(lambda: 0, reps=2, windows=len(window_s))
+    assert got == pytest.approx((median, lo, hi))
 
 
-def test_floor_uses_cost_analysis_when_available():
-    bench = _load_bench()
-
-    class _Jit:
-        def lower(self, *a):
-            class C:
-                def compile(self):
-                    return self
-
-                def cost_analysis(self):
-                    return {"flops": 41.1e9}
-            return C()
-
-    floor_ms, flops, src = bench.derive_floor_ms(_Jit(), ())
-    assert src == "xla-cost-analysis" and flops == 41.1e9
+def test_chip_smoke_refuses_a_non_gpu_platform():
+    import jax
+    cs = _load("chip_smoke")
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        cs.require_gpu(jax.devices())
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        cs.require_gpu([])
+    with pytest.raises(SystemExit, match="needs 4 GPUs"):
+        cs.require_gpu([_device("gpu", "NVIDIA H100 80GB HBM3")], count=4)
+    cs.require_gpu([_device("gpu", "NVIDIA H100 80GB HBM3")])
 
 
-def test_child_protocol_line_roundtrip():
-    # the parent greps stdout for this exact shape (bench.py session loop)
-    line = json.dumps({"child_raw_ms": 0.1234})
-    found = [l for l in ["noise", line] if "child_raw_ms" in l]
-    assert json.loads(found[-1])["child_raw_ms"] == 0.1234
+@pytest.mark.parametrize("count", [1, 4])
+def test_chip_smoke_result_line_shape(count):
+    devices = [_device("gpu", "NVIDIA H100 80GB HBM3")] * count
+    line = _load("chip_smoke").result_line(devices)
+    assert "\n" not in line
+    assert json.loads(line) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": count}}
+
+
+def test_chip_smoke_time_ms_median_of_windows():
+    calls = []
+    med, lo, hi = profiling.time_ms(lambda: calls.append(1), reps=2,
+                                    windows=3)
+    assert len(calls) == 1 + 2 * 3          # one warm-up call, then windows
+    assert lo <= med <= hi

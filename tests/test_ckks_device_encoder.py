@@ -1,9 +1,9 @@
-"""Device-native CKKS encoder vs the host numpy oracle.
+"""Device CKKS encoder vs the host numpy oracle.
 
-The device path (ops/embedding.py: MXU int8 digit-plane 4-step embedding,
-chunk-exact RNS rounding, multiword CRT composition) must agree with the
-host path (numpy FFT + exact-integer rounding) to the LAST ROUNDED BIT —
-the transforms differ by ~2^-51 relative, far inside the rounding margin.
+The device path (ops/embedding.py: complex128 FFT embedding, chunk-exact
+RNS rounding, multiword CRT composition) must agree with the host path
+(numpy FFT + exact-integer rounding) to the LAST ROUNDED BIT — two double
+FFTs differ in the last bits at most, far inside the rounding margin.
 (VERDICT.md next #1: no numpy FFT on the CKKS hot path.)
 """
 
@@ -25,6 +25,9 @@ def _ctx(n, bits):
     (64, [50, 30, 50], float(1 << 30)),
     (64, [50, 30, 50], float(1 << 40)),
     (256, [60, 40, 40, 60], float(1 << 40)),
+    # Q of 1200 bits: a radix-2^32 ladder of 38 levels, beyond what one
+    # f64 scaling can reach from the top
+    (64, [60] * 20, float(1 << 40)),
 ])
 def test_device_encode_matches_host_words(n, bits, scale):
     ctx = _ctx(n, bits)
@@ -85,20 +88,35 @@ def test_device_encode_polynomial_matches_host():
     np.testing.assert_allclose(back, c, atol=1e-8)
 
 
-def test_round_to_rns_device_exact():
-    """Chunk-route rounding is exact at any magnitude, including negatives
-    and values far beyond 2^62."""
-    q = tuple(int(m) for m in T.CoeffModulus.create(64, [60, 40, 60]))
+def _check_round_to_rns(bits, mags, seed):
+    """round_to_rns_device equals Python-int rounding mod each prime."""
+    q = tuple(int(m) for m in T.CoeffModulus.create(64, bits))
     rt = emb.make_rns_round_tables(q)
     import jax.numpy as jnp
-    rng = np.random.default_rng(13)
-    for mag in (1.0, 2.0**40, 2.0**75, 2.0**120):
+    rng = np.random.default_rng(seed)
+    for mag in mags:
         c = rng.standard_normal(64) * mag
         got = np.asarray(emb.round_to_rns_device(jnp.asarray(c), rt))
         want_int = [int(float(v)) for v in np.rint(c)]
         for i, qi in enumerate(q):
             want = np.array([w % qi for w in want_int], dtype=np.uint64)
             np.testing.assert_array_equal(got[i], want)
+    return rt
+
+
+def test_round_to_rns_device_exact():
+    """Chunk-route rounding is exact at any magnitude, including negatives
+    and values far beyond 2^62."""
+    _check_round_to_rns([60, 40, 60], (1.0, 2.0**40, 2.0**75, 2.0**120), 13)
+
+
+def test_round_to_rns_device_exact_long_chain():
+    """A 1200-bit Q (20 primes of 60 bits) needs more radix-2^32 levels
+    than an f64 can span; every finite magnitude up to near 2^1023 still
+    rounds exactly."""
+    rt = _check_round_to_rns([60] * 20, (1.0, 2.0**40, 2.0**500, 2.0**1000,
+                                         2.0**1020), 19)
+    assert rt.maxw > 32
 
 
 def test_compose_centered_device_exact():

@@ -6,8 +6,8 @@ reference's compiled host library (generator alongside:
 ref_ckks_n16384_headline_generator.cpp.txt): keygen -> encode ->
 symmetric encrypt -> multiply -> relinearize -> rescale -> rotate, all
 compared word-for-word — including the ENCODE step through the
-device-native MXU embedding (ops/embedding.py), which reproduces the
-reference's double-FFT rounding bit-for-bit at benchmark scale.
+device embedding (ops/embedding.py), which reproduces the reference's
+double-FFT rounding bit-for-bit at benchmark scale.
 """
 
 import pathlib
@@ -87,7 +87,7 @@ def _ct(raw, ctx, name, level=None):
 
 
 def test_ckks_headline_device_encode_bit_exact(env):
-    """The device-native MXU embedding reproduces the reference's encoded
+    """The device embedding reproduces the reference's encoded
     plaintext words at benchmark scale: p1 is word-for-word IDENTICAL;
     p2 happens to contain one coefficient that lands within a rounding
     tie of the reference's double FFT — the inherent limit between ANY

@@ -1,8 +1,8 @@
-"""Multi-process (DCN-path) collectives — the sharded regimes executed
-across a REAL process boundary via jax.distributed (2 OS processes x 4
-virtual CPU devices each). This is the code path that carries DCN
-traffic between TPU hosts; the reference has no analogue at all
-(single GPU, src/kernelprovider.cuh:30).
+"""Multi-process collectives — the sharded regimes executed across a
+REAL process boundary via jax.distributed (2 OS processes x 4 virtual
+CPU devices each). This is the code path that carries traffic between
+hosts; the reference has no analogue at all (single GPU,
+src/kernelprovider.cuh:30).
 
 Runs benchmarks/dcn_multiprocess.py at a small config (n=256, 2 data
 limbs) covering all four regimes: cross-process DP placement,
@@ -10,8 +10,7 @@ limb-sharding whose key-switch psum crosses the boundary, the 2-D
 mesh with tp pairs spanning both processes, and the app-layer
 MatmulHelper tile contraction with its output-tile axis split across
 the boundary. Every regime must match a single-device replay
-word-for-word and decrypt exactly. The full-size run (n=8192, 6
-limbs) is recorded in MULTIPROC_r04.json.
+word-for-word and decrypt exactly.
 """
 
 import json
@@ -25,7 +24,7 @@ SCRIPT = os.path.join(REPO, "benchmarks", "dcn_multiprocess.py")
 
 
 
-def test_dcn_multiprocess_small():
+def test_dcn_multiprocess_small(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     env.pop("PYTHONSTARTUP", None)
@@ -34,13 +33,15 @@ def test_dcn_multiprocess_small():
     env["TROY_DCN_TBITS"] = "17"
     env["TROY_DCN_MM"] = "8,32,32"         # app tiles: Y=4, splits over 2
     env["TROY_DCN_PORT"] = "12961"
-    env["TROY_DCN_OUT"] = "/tmp/troy_dcn_test.json"
+    out_json = str(tmp_path / "multiprocess.json")
+    env["TROY_DCN_OUT"] = out_json
     # do not inherit the suite's 8-device XLA flag: workers set their own
     env.pop("XLA_FLAGS", None)
     out = subprocess.run([sys.executable, SCRIPT], env=env,
                          capture_output=True, text=True, timeout=850)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-2000:]
-    rec = json.load(open("/tmp/troy_dcn_test.json"))
+    with open(out_json) as f:
+        rec = json.load(f)
     assert rec["ok"] is True
     assert rec["processes"] == 2
     assert rec["regimes"] == {"dp8": True, "tp2x": True, "dp4tp2x": True,

@@ -194,18 +194,16 @@ def test_ckks_random_sequences(fuzz_seed):
             f"max err {np.abs(got - model).max()}"
 
 
-def test_bfv_mxu_path_random_sequence():
-    """Same fuzz over the MXU 4-step NTT path (n=2048 >= MXU_MIN_N, the
-    production kernel; native-filled digit planes when the toolchain is
-    present)."""
-    n = 2048
+def test_bfv_n4096_random_sequence():
+    """Same fuzz at n=4096 over three 40-60-bit primes, where every NTT of
+    the pipeline runs the butterfly network at a production width."""
+    n = 4096
     parms = T.EncryptionParameters(
         scheme=T.SchemeType.bfv, poly_modulus_degree=n,
         coeff_modulus=tuple(T.CoeffModulus.create(n, [50, 40, 50])),
         plain_modulus=T.PlainModulus.batching(n, 18))
     ctx = T.HeContext(parms, sec_level=T.SecurityLevel.none)
-    assert ctx.first_context_data.ntt.mxu is not None
-    kg = T.KeyGenerator(ctx, seed=rnd.seed_from_uint64(2048))
+    kg = T.KeyGenerator(ctx, seed=rnd.seed_from_uint64(4096))
     t = int(ctx.first_context_data.plain_modulus)
     rlk = kg.create_relin_keys()
     glk = kg.create_galois_keys(steps=[1, -1])
@@ -246,4 +244,4 @@ def test_bfv_mxu_path_random_sequence():
             break
         got = be.decode(dec.decrypt(ct)).astype(object)
         assert np.array_equal(got, model % t), \
-            f"mxu fuzz diverged at step {step_i} ({op})"
+            f"n=4096 fuzz diverged at step {step_i} ({op})"

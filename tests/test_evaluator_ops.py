@@ -243,12 +243,10 @@ def test_rotate_many_mixed_keys():
             err_msg=f"step={s}")
 
 
-def test_apply_galois_many_dispatch_schedule(monkeypatch):
-    """The dispatch schedule (the TPU default) must decrypt-match the
-    sequential path both BELOW the hoist crossover (m < DISPATCH_HOIST_MIN_M
-    runs the fused per-element program) and at/above it (decompose-once +
-    one contract dispatch per element)."""
-    monkeypatch.setenv("TROY_HOIST_SCHEDULE", "dispatch")
+def test_apply_galois_many_gate():
+    """One element runs the fused single-automorphism program and builds
+    no pre-permuted key; two or more run the hoisted schedule. Both must
+    decrypt-match the sequential path."""
     parms = T.EncryptionParameters(
         scheme=T.SchemeType.bfv, poly_modulus_degree=64,
         coeff_modulus=tuple(T.CoeffModulus.create(64, [40, 40, 40])),
@@ -265,10 +263,10 @@ def test_apply_galois_many_dispatch_schedule(monkeypatch):
     ct = enc.encrypt_symmetric(be.encode(a))
     all_elts = [T.utils.galois.get_elt_from_step(n, s)
                 for s in (1, 2, -1, -2)]
-    for m in (2, 4):      # below and at the crossover
+    for m in (1, 2, 4):
         elts = all_elts[:m]
-        assert (m >= ev.DISPATCH_HOIST_MIN_M) == (m == 4)
         outs = ev.apply_galois_many(ct, elts, glk)
+        assert (len(ev._pp_keys) > 0) == (m > 1)
         for elt, out in zip(elts, outs):
             seq = ev.apply_galois(ct, elt, glk)
             np.testing.assert_array_equal(

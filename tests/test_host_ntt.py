@@ -1,5 +1,5 @@
 """Host numpy NTT twin (utils/host_ntt.py) — must produce words IDENTICAL
-to the device transforms (ops/ntt.py, incl. the MXU 4-step path), since
+to the device transforms (ops/ntt.py), since
 the host keygen fast path uploads its output directly into the bit-exact
 pipelines (reference architecture: keygen on host + upload,
 keygenerator_cuda.cuh:51-85)."""
@@ -14,7 +14,7 @@ from troy_tpu.utils import host_ntt as hntt
 from troy_tpu.utils.ntt_tables import make_ntt_tables
 
 
-@pytest.mark.parametrize("n", [64, 2048])   # butterfly + MXU device paths
+@pytest.mark.parametrize("n", [64, 2048])
 def test_host_ntt_matches_device(n):
     qs = [int(q) for q in T.CoeffModulus.create(n, [40, 60])]
     rng = np.random.default_rng(3)

@@ -1,9 +1,8 @@
-"""Narrow internal (BEHZ auxiliary) base — the opt-in TPU perf mode.
+"""Narrow internal (BEHZ auxiliary) base — an opt-in mode.
 
 ``HeContext(..., internal_prime_bits=b)`` sizes the Bsk/m_sk/gamma primes
 at b bits instead of the reference's 61 (rns.cpp:628-630 getPrimes(61)).
-Narrower aux primes need fewer MXU byte planes (ceil(b/8)), shrinking the
-BFV multiply's dominant Bsk NTT cost; correctness is enforced by exact-
+Correctness is enforced by exact-
 product sizing (prod(B)*m_sk > 2^33 * t * Q — utils/rns.RnsTool docstring)
 and gated here by decrypt-vs-plaintext-model fuzz across all three schemes
 (VERDICT r4 #2). The default path must remain word-identical to the

@@ -90,43 +90,26 @@ def test_ntt_tables_fill_matches_python_loop():
             ips_np, to64([shoup(p) for p in inv_powers]))
 
 
-def test_mxu_tables_fill_matches_python_oracle():
-    from troy_tpu.ops import ntt_mxu
-    # includes an odd-log2(n) case where A = 2B (rectangular split):
-    # w1/tw/w2 row-column mixups are only distinguishable there
-    for n, bits in ((256, 60), (1024, 40), (512, 50)):
-        q = numth.get_prime(2 * n, bits)
-        A, B, w1, tw, w2, v1, itw, v2 = ntt_mxu.make_mxu_tables_host(n, q)
-        psi = numth.minimal_primitive_root(2 * n, q)
-        nat = native.mxu_tables_fill(n, A, B, q, psi)
-        assert nat is not None
-        names = ["w1", "tw", "w2", "v1", "itw", "v2"]
-        shoup = np.vectorize(lambda w: ((int(w) << 64) // q)
-                             & 0xFFFFFFFFFFFFFFFF, otypes=[object])
-        to64 = lambda m: np.array(
-            [[int(x) & 0xFFFFFFFFFFFFFFFF for x in row] for row in m],
-            dtype=np.uint64)
-        for name, py, nt in zip(names, (w1, tw, w2, v1, itw, v2), nat[:6]):
-            np.testing.assert_array_equal(nt, to64(py), err_msg=name)
-        np.testing.assert_array_equal(nat[6], to64(shoup(tw)), err_msg="tws")
-        np.testing.assert_array_equal(nat[7], to64(shoup(itw)), err_msg="itws")
+def test_library_builds_into_the_checkout():
+    """The shared object is compiled from the committed source into the
+    checkout's build/ directory (listed in .gitignore), nowhere else."""
+    import os
+    lib = native.get_lib()
+    assert lib is not None
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert native.BUILD_DIR == os.path.join(repo, "build", "troy_native")
+    assert os.path.dirname(lib._name) == native.BUILD_DIR
 
 
-def test_signed_digits_fill_matches_python():
-    from troy_tpu.ops.ntt_mxu import _signed_digits_host
-    rng = np.random.default_rng(5)
-    mat = rng.integers(0, 1 << 61, (17, 23), dtype=np.uint64)
-    py = _signed_digits_host(mat)
-    nat = native.signed_digits_fill(mat)
-    np.testing.assert_array_equal(nat, py)
-    # reconstruction check: sum of planes recovers the values
-    rec = sum(nat[d].astype(object) * (1 << (8 * d)) for d in range(8))
-    np.testing.assert_array_equal(rec.astype(np.uint64), mat)
+def test_jax_cache_follows_the_environment(monkeypatch, tmp_path):
+    from troy_tpu.utils import jax_cache
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert jax_cache.cache_dir() == str(tmp_path)
 
 
-def test_signed_digits_fill_rejects_overflow():
-    # 2^63 - 1 needs a 9th digit; the Python oracle asserts, the native
-    # path must raise rather than silently corrupt the planes
-    bad = np.array([[np.uint64(2**63 - 1)]], dtype=np.uint64)
-    with pytest.raises(ValueError):
-        native.signed_digits_fill(bad)
+def test_jax_cache_defaults_to_the_checkout(monkeypatch):
+    import os
+    from troy_tpu.utils import jax_cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert jax_cache.cache_dir() == os.path.join(repo, ".jax_cache")

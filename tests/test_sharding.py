@@ -71,9 +71,9 @@ def test_coeff_sharded(setup):
 def test_sharded_executables_contain_collectives(setup):
     """The annotation-derived programs must really communicate: the
     compiled HLO of the limb- and coefficient-sharded steps has to contain
-    cross-device collective ops (psum lowers to all-reduce; the 4-step-NTT
+    cross-device collective ops (psum lowers to all-reduce; the NTT's
     resharding lowers to all-to-all / collective-permute / all-gather).
-    This pins the §2.2 claim that GSPMD inserts the ICI collectives the
+    This pins the §2.2 claim that GSPMD inserts the collectives the
     reference would have needed NCCL for."""
     s = setup
     a = np.arange(N, dtype=np.uint64)
@@ -212,7 +212,7 @@ def _ctx5():
 
 def test_limb_sharded_rotate(setup):
     """Rotation under the limb regime: permutation is limb-local, the key
-    switch reduces over ICI; must match the unsharded evaluator word for
+    switch reduces across devices; must match the unsharded evaluator word for
     word AND really communicate (VERDICT.md next #7)."""
     import re
     a = np.arange(N, dtype=np.uint64)

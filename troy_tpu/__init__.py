@@ -1,4 +1,4 @@
-"""troy_tpu — a TPU-native homomorphic encryption framework.
+"""troy_tpu — a homomorphic encryption framework in JAX.
 
 A from-scratch JAX/XLA implementation of the BFV, BGV and CKKS RLWE
 schemes with Microsoft-SEAL-compatible semantics (capability reference:
@@ -9,9 +9,8 @@ statically into the traced computation.
 
 import jax as _jax
 
-# The whole framework computes on uint64 arrays (XLA emulates 64-bit integer
-# arithmetic with uint32 pairs on TPU). This must be set before any array is
-# created, hence at package import.
+# The whole framework computes on uint64 arrays. This must be set before any
+# array is created, hence at package import.
 _jax.config.update("jax_enable_x64", True)
 
 from .modulus import (  # noqa: E402

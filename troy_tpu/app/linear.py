@@ -62,16 +62,15 @@ def _matmul_tiles_core(ct_tiles: jnp.ndarray, pt_tiles: jnp.ndarray,
     return dntt.rns_ntt_inverse(acc, cd.ntt) if ct_coeff else acc
 
 
-# Compile-size guard for the ct x ct contraction: one XLA program per
-# contraction step keeps the unrolled BEHZ pipeline small enough for the
-# compiler (a fully fused I x Y grid at n=16384 OOM-killed it), while the
-# vmap inside each step still shares the lifts and batches the products.
+# Dispatch-size guards, not measured on the GPU yet (their values come
+# from an earlier target with a smaller device memory): one program per
+# contraction step bounds the unrolled BEHZ pipeline of the ct x ct
+# contraction, while the vmap inside each step still shares the lifts and
+# batches the products; chunking the output-tile axis of the ct x pt
+# contraction bounds its live set (the reference conv2d config, 1x64x256
+# 56x56 k3 -> X=1, I=64, Y=52 tiles at n=16384), while the NTTs of the
+# ciphertext tiles are still computed exactly once.
 _MAX_CIPHER_MULS_PER_DISPATCH = 32
-
-# HBM guard for the ct x pt contraction: the reference conv2d config
-# (1x64x256 56x56 k3 -> X=1, I=64, Y=52 tiles at n=16384) planned 26.9 GB
-# as one executable; chunking the output-tile axis bounds the live set
-# while the NTTs of the ciphertext tiles are still computed exactly once.
 _MAX_PLAIN_MULS_PER_DISPATCH = 2048
 
 
@@ -90,29 +89,11 @@ def _tiles_plain_ntt(pt_tiles: jnp.ndarray, cd: ContextData) -> jnp.ndarray:
     return _plain_to_ntt.__wrapped__(pt_tiles, cd)
 
 
-# NTT-conversion sub-chunk: the MXU 4-step transform materializes an
-# (ndig*A, ndig*B) i32 product grid per limb-row (~2.4 MB at n=16384), so
-# converting thousands of plaintext tiles in one dispatch overflows HBM.
-_MAX_TILE_NTTS_PER_DISPATCH = 128
-
-
-def _plain_ntt_chunked(pt_tiles: jnp.ndarray, cd: ContextData) -> jnp.ndarray:
-    """(I, Y, n) mod-t tiles -> (I, Y, k, n) NTT mod-q, in bounded
-    dispatches."""
-    I, Y, n = pt_tiles.shape
-    flat = pt_tiles.reshape(I * Y, n)
-    step = max(1, _MAX_TILE_NTTS_PER_DISPATCH)
-    parts = [_tiles_plain_ntt(flat[r0:r0 + step], cd)
-             for r0 in range(0, I * Y, step)]
-    out = parts[0] if len(parts) == 1 else jnp.concatenate(parts)
-    return out.reshape(I, Y, out.shape[-2], n)
-
-
 def _matmul_tiles_chunked(ct_tiles: jnp.ndarray, pt_tiles: jnp.ndarray,
                           cd: ContextData, ct_coeff: bool,
                           pt_mod_t: bool) -> jnp.ndarray:
-    """ct x pt tile contraction with the output-tile axis chunked so no
-    single executable's live set exceeds HBM (big conv2d shapes)."""
+    """ct x pt tile contraction with the output-tile axis chunked to bound
+    each executable's live set (big conv2d shapes)."""
     X, I = ct_tiles.shape[0], ct_tiles.shape[1]
     Y = pt_tiles.shape[1]
     if X * I * Y <= _MAX_PLAIN_MULS_PER_DISPATCH:
@@ -123,7 +104,7 @@ def _matmul_tiles_chunked(ct_tiles: jnp.ndarray, pt_tiles: jnp.ndarray,
     parts = []
     for y0 in range(0, Y, y_chunk):
         pt_c = pt_tiles[:, y0:y0 + y_chunk]
-        pt_c = _plain_ntt_chunked(pt_c, cd) if pt_mod_t else pt_c
+        pt_c = _tiles_plain_ntt(pt_c, cd) if pt_mod_t else pt_c
         parts.append(_matmul_tiles_core(ct_ntt, pt_c, cd, False, False))
     acc = parts[0] if len(parts) == 1 else jnp.concatenate(parts, axis=1)
     return _tiles_inverse_ntt(acc, cd) if ct_coeff else acc

@@ -7,8 +7,7 @@ level"), each subsequent level drops the last prime — carrying every
 precomputation the actors need: NTT tables (device twins), the RNS/BEHZ tool,
 BFV plain-lift scalars, and batching tables.
 
-TPU-native shape: ``ContextData`` is a pytree whose leaves are the device
-NTT tables and whose static fields are hashable Python scalars, so a whole
+``ContextData`` is a pytree whose leaves are the device NTT tables and whose static fields are hashable Python scalars, so a whole
 level can ride through ``jax.jit`` and every modulus constant specializes
 into the compiled executable.
 """
@@ -18,7 +17,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+from .utils import struct
 
 from .modulus import Modulus, SecurityLevel
 from .params import (
@@ -84,13 +83,12 @@ class ContextData(struct.PyTreeNode):
 
 def _build_context_data(parms: EncryptionParameters, chain_index: int,
                         qualifiers: EncryptionParameterQualifiers,
-                        use_mxu=None,
                         internal_prime_bits: int = None) -> ContextData:
     n = parms.poly_modulus_degree
     values = parms.coeff_values
     t = int(parms.plain_modulus)
 
-    ntt = RnsNttTables.from_moduli(n, values, use_mxu=use_mxu)
+    ntt = RnsNttTables.from_moduli(n, values)
 
     plain_ntt = None
     if qualifiers.using_batching:
@@ -103,8 +101,7 @@ def _build_context_data(parms: EncryptionParameters, chain_index: int,
 
     bsk_ntt = None
     if parms.scheme == SchemeType.bfv:
-        bsk_ntt = RnsNttTables.from_moduli(n, rns_tool.base_Bsk.values,
-                                           use_mxu=use_mxu)
+        bsk_ntt = RnsNttTables.from_moduli(n, rns_tool.base_Bsk.values)
 
     Q = 1
     for v in values:
@@ -160,13 +157,12 @@ class HeContext:
     def __init__(self, parms: EncryptionParameters,
                  expand_mod_chain: bool = True,
                  sec_level: SecurityLevel = SecurityLevel.tc128,
-                 use_mxu: bool = None,
                  internal_prime_bits: int = None):
         """``internal_prime_bits``: width of the BEHZ auxiliary-base primes.
-        None/61 = reference parity (rns.cpp getPrimes(61, ...)); 34-60 is
-        an opt-in TPU perf mode — narrower aux primes need fewer MXU byte
-        planes, shrinking the BFV multiply's Bsk NTTs ~2.5x at 40 bits
-        (see utils/rns.RnsTool docstring for the correctness sizing)."""
+        None/61 = reference parity (rns.cpp getPrimes(61, ...)); 34-60
+        opts into a narrower auxiliary base, whose speed on the GPU is
+        not measured yet (see utils/rns.RnsTool docstring for the
+        correctness sizing)."""
         qualifiers = validate(parms, sec_level)
         if not qualifiers.parameters_set:
             raise ValueError(f"invalid encryption parameters: "
@@ -174,7 +170,7 @@ class HeContext:
         self.sec_level = sec_level
         self.internal_prime_bits = internal_prime_bits
         chain: List[ContextData] = [
-            _build_context_data(parms, 0, qualifiers, use_mxu,
+            _build_context_data(parms, 0, qualifiers,
                                 internal_prime_bits)]
 
         self._using_keyswitching = len(parms.coeff_modulus) > 1
@@ -186,7 +182,7 @@ class HeContext:
                 if not q.parameters_set:
                     raise ValueError(f"invalid parameters at chain level {idx}: "
                                      f"{q.error_message}")
-                chain.append(_build_context_data(level_parms, idx, q, use_mxu,
+                chain.append(_build_context_data(level_parms, idx, q,
                                                  internal_prime_bits))
                 if not expand_mod_chain or len(level_parms.coeff_modulus) == 1:
                     break

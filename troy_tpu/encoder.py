@@ -6,7 +6,7 @@ src/batchencoder_cuda.cu:27-118): the 2x(N/2) slot matrix maps onto NTT
 evaluation points through the bit-reversed 3^i orbit index map, then an
 inverse NTT over the plain modulus produces coefficients.
 
-TPU-native: the index map is a host-precomputed gather/scatter table; both
+The index map is a host-precomputed gather/scatter table; both
 encode and decode are a single device gather plus one NTT.
 """
 

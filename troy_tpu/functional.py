@@ -17,7 +17,7 @@ pipelines compile into one fused XLA program:
     out = step(ct1, ct2, ctx.first_context_data,
                ctx.key_context_data, rlk.keys[2])
 
-Ciphertexts are flax-struct pytrees; their static metadata (level, NTT
+Ciphertexts are pytree dataclasses; their static metadata (level, NTT
 flag, scale, correction factor) specializes the trace exactly like the
 reference's per-level dispatch (reference: src/evaluator_cuda.cu scheme
 splits at :262-432).

@@ -1,8 +1,10 @@
 """ctypes bindings for the native host runtime (troy_native.cpp).
 
-Compiled on demand with g++ into a content-hash-keyed shared object (no
-pip/cmake needed); every entry point has a pure-Python fallback, so the
-framework works without a toolchain — just slower on the host paths.
+Compiled on first use with g++ from the committed source into a
+content-hash-keyed shared object under the checkout's ``build/`` (no
+pip/cmake needed). Every entry point has a pure-Python fallback, so the
+framework works without a toolchain, only slower on the host paths; the
+first use says on stderr which of the two is in use.
 """
 
 from __future__ import annotations
@@ -11,60 +13,55 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import tempfile
+import sys
 from typing import Optional
 
 import numpy as np
 
 _SRC = os.path.join(os.path.dirname(__file__), "src", "troy_native.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build", "troy_native")
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> Optional[ctypes.CDLL]:
-    try:
-        with open(_SRC, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha256(src).hexdigest()[:16]
-        cache_dir = os.environ.get("TROY_NATIVE_CACHE",
-                                   os.path.join(tempfile.gettempdir(),
-                                                "troy_native"))
-        os.makedirs(cache_dir, exist_ok=True)
-        so_path = os.path.join(cache_dir, f"troy_native_{tag}.so")
-        if not os.path.exists(so_path):
-            tmp = so_path + f".build{os.getpid()}"
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                 "-o", tmp, _SRC],
-                check=True, capture_output=True)
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(so_path)
-        lib.xof_fill.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
-                                 ctypes.c_void_p, ctypes.c_uint64]
-        lib.crt_compose_centered_double.argtypes = [
-            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64,
-            ctypes.c_double, ctypes.c_void_p]
-        lib.ntt_tables_fill.argtypes = [
-            ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
-            ctypes.c_uint64] + [ctypes.c_void_p] * 4
-        lib.mxu_tables_fill.argtypes = [
-            ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
-            ctypes.c_uint64, ctypes.c_uint64] + [ctypes.c_void_p] * 8
-        lib.signed_digits_fill.argtypes = [
-            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p]
-        lib.signed_digits_fill.restype = ctypes.c_int
-        return lib
-    except Exception:
-        return None
+def _build() -> ctypes.CDLL:
+    with open(_SRC, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"troy_native_{tag}.so")
+    if not os.path.exists(so_path):
+        tmp = so_path + f".build{os.getpid()}"
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                        "-o", tmp, _SRC], check=True, capture_output=True)
+        os.replace(tmp, so_path)
+    lib = ctypes.CDLL(so_path)
+    lib.xof_fill.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                             ctypes.c_void_p, ctypes.c_uint64]
+    lib.crt_compose_centered_double.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64,
+        ctypes.c_double, ctypes.c_void_p]
+    lib.ntt_tables_fill.argtypes = [
+        ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.c_uint64] + [ctypes.c_void_p] * 4
+    return lib
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if not _tried:
-        _lib = _build()
         _tried = True
+        try:
+            _lib = _build()
+            print(f"troy_tpu.native: host library {_lib._name}",
+                  file=sys.stderr)
+        except (OSError, subprocess.CalledProcessError) as e:
+            detail = getattr(e, "stderr", b"") or b""
+            print(f"troy_tpu.native: build failed ({e}; "
+                  f"{detail.decode(errors='replace').strip()[:500]}); "
+                  "using the pure-Python host paths", file=sys.stderr)
     return _lib
 
 
@@ -92,34 +89,6 @@ def ntt_tables_fill(n: int, q: int, root: int, inv_root: int):
     lib.ntt_tables_fill(n, q, root, inv_root,
                         *(a.ctypes.data for a in arrs))
     return tuple(arrs)
-
-
-def mxu_tables_fill(n: int, a: int, b: int, q: int, psi: int):
-    """4-step factor matrices for n = a*b; None if no lib. Returns
-    (w1, tw, w2, v1, itw, v2, tw_shoup, itw_shoup) u64 row-major."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    shapes = [(a, a), (a, b), (b, b), (a, a), (a, b), (b, b), (a, b), (a, b)]
-    arrs = [np.empty(s, dtype=np.uint64) for s in shapes]
-    lib.mxu_tables_fill(n, a, b, q, psi,
-                        *(x.ctypes.data for x in arrs))
-    return tuple(arrs)
-
-
-def signed_digits_fill(mat: np.ndarray):
-    """u64 array -> (8,) + mat.shape int8 signed radix-256 planes; None if
-    no lib. Raises on values needing a 9th digit (the representable range
-    is (-2^63, 2^63 - 2^55 + 2^54...] in practice; all real inputs are
-    residues < q < 2^61), matching the Python oracle's assertion."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    mat = np.ascontiguousarray(mat, dtype=np.uint64)
-    out = np.empty((8,) + mat.shape, dtype=np.int8)
-    if lib.signed_digits_fill(mat.ctypes.data, mat.size, out.ctypes.data):
-        raise ValueError("value exceeded the signed 8-digit range")
-    return out
 
 
 def crt_compose_centered_double(residues: np.ndarray, moduli, inv_punctured,

@@ -2,15 +2,16 @@
 //
 // The reference keeps its host runtime in C++ (memory pools, serialization,
 // PRNG buffering — src/randomgen.cpp, src/utils/rns.cpp compose); this is
-// our equivalent for the TPU build's host-side hot paths:
+// our equivalent for the host-side hot paths:
 //   * blake2xb-style XOF stream expansion (bit-exact with troy_tpu.prng,
 //     which builds on hashlib's RFC 7693 blake2b), feeding the RLWE
 //     samplers;
 //   * multiword CRT composition (residues -> centered big integers ->
 //     doubles), the CKKS decode host step (reference rns.cpp composeArray).
 //
-// Built on demand with g++ (see troy_tpu/native/build.py); the Python layer
-// falls back to pure-Python implementations when no toolchain is present.
+// Built on first use with g++ into the checkout's build/ (see
+// troy_tpu/native/__init__.py); the Python layer falls back to pure-Python
+// implementations when no toolchain is present.
 
 #include <cstdint>
 #include <cstring>
@@ -299,10 +300,9 @@ void crt_compose_centered_double(
 // caller guarantees k*Q < 2^(64*(w+1)).
 
 // ---------------------------------------------------------------------------
-// Table precompute engine (reference ntt.cpp CreateNTTTables / our MXU
-// 4-step factor matrices). The Python paths in utils/ntt_tables.py and
-// ops/ntt_mxu.py stay as the bit-exact oracles; these fill the same
-// tables ~100x faster at context-construction time.
+// Table precompute engine (reference ntt.cpp CreateNTTTables). The Python
+// path in utils/ntt_tables.py stays as the bit-exact oracle; this fills
+// the same tables much faster at context-construction time.
 // ---------------------------------------------------------------------------
 
 static inline uint64_t mulmod_q(uint64_t a, uint64_t b, uint64_t q) {
@@ -311,17 +311,6 @@ static inline uint64_t mulmod_q(uint64_t a, uint64_t b, uint64_t q) {
 
 static inline uint64_t shoup_q(uint64_t w, uint64_t q) {
     return (uint64_t)((((u128)w) << 64) / q);
-}
-
-static inline uint64_t powmod_q(uint64_t base, uint64_t e, uint64_t q) {
-    uint64_t r = 1 % q;
-    base %= q;
-    while (e) {
-        if (e & 1) r = mulmod_q(r, base, q);
-        base = mulmod_q(base, base, q);
-        e >>= 1;
-    }
-    return r;
 }
 
 static inline uint64_t brv_u64(uint64_t x, int bits) {
@@ -354,91 +343,6 @@ void ntt_tables_fill(uint64_t n, uint64_t q, uint64_t root,
         powers_shoup[i] = shoup_q(powers[i], q);
         inv_powers_shoup[i] = shoup_q(inv_powers[i], q);
     }
-}
-
-// 4-step factor matrices for n = A*B (ops/ntt_mxu.py make_mxu_tables_host):
-//   w1 (A,A), tw (A,B), w2 (B,B), v1 (A,A), itw (A,B), v2 (B,B), plus
-//   Shoup quotients for the twiddle grids. psi = minimal 2n-th root.
-void mxu_tables_fill(uint64_t n, uint64_t A, uint64_t B, uint64_t q,
-                     uint64_t psi,
-                     uint64_t* w1, uint64_t* tw, uint64_t* w2,
-                     uint64_t* v1, uint64_t* itw, uint64_t* v2,
-                     uint64_t* tw_shoup, uint64_t* itw_shoup) {
-    int log_a = 0, log_b = 0;
-    while ((1ULL << log_a) < A) log_a++;
-    while ((1ULL << log_b) < B) log_b++;
-    uint64_t omega = mulmod_q(psi, psi, q);
-    uint64_t inv_psi = powmod_q(psi, q - 2, q);
-    uint64_t inv_omega = powmod_q(omega, q - 2, q);
-    uint64_t inv_a = powmod_q(A % q, q - 2, q);
-    uint64_t inv_b = powmod_q(B % q, q - 2, q);
-
-    uint64_t* om = new uint64_t[n];
-    uint64_t* iom = new uint64_t[n];
-    uint64_t* ps = new uint64_t[2 * n];
-    uint64_t* ips = new uint64_t[2 * n];
-    om[0] = iom[0] = ps[0] = ips[0] = 1;
-    for (uint64_t i = 1; i < n; i++) {
-        om[i] = mulmod_q(om[i - 1], omega, q);
-        iom[i] = mulmod_q(iom[i - 1], inv_omega, q);
-    }
-    for (uint64_t i = 1; i < 2 * n; i++) {
-        ps[i] = mulmod_q(ps[i - 1], psi, q);
-        ips[i] = mulmod_q(ips[i - 1], inv_psi, q);
-    }
-
-    for (uint64_t p1 = 0; p1 < A; p1++) {
-        uint64_t r = brv_u64(p1, log_a);
-        for (uint64_t a = 0; a < A; a++)
-            w1[p1 * A + a] = mulmod_q(om[(B * a % n) * r % n],
-                                      ps[a * B % (2 * n)], q);
-        for (uint64_t b = 0; b < B; b++) {
-            tw[p1 * B + b] = mulmod_q(ps[b], om[b * r % n], q);
-            itw[p1 * B + b] = mulmod_q(ips[b], iom[b * r % n], q);
-            tw_shoup[p1 * B + b] = shoup_q(tw[p1 * B + b], q);
-            itw_shoup[p1 * B + b] = shoup_q(itw[p1 * B + b], q);
-        }
-    }
-    for (uint64_t p2 = 0; p2 < B; p2++) {
-        uint64_t r = brv_u64(p2, log_b);
-        for (uint64_t b = 0; b < B; b++) {
-            w2[b * B + p2] = om[(A * b % n) * r % n];
-            v2[p2 * B + b] = mulmod_q(inv_b, iom[(A * b % n) * r % n], q);
-        }
-    }
-    for (uint64_t a = 0; a < A; a++) {
-        uint64_t row = mulmod_q(inv_a, ips[a * B % (2 * n)], q);
-        for (uint64_t p1 = 0; p1 < A; p1++) {
-            uint64_t r = brv_u64(p1, log_a);
-            v1[a * A + p1] = mulmod_q(row, iom[(B * a % n) * r % n], q);
-        }
-    }
-    delete[] om;
-    delete[] iom;
-    delete[] ps;
-    delete[] ips;
-}
-
-// Signed radix-256 digit planes (ops/ntt_mxu.py _signed_digits_host):
-// out[d*count + i] = digit d of mat[i], digits in [-128, 127].
-// Returns 0 on success, 1 if any value needs a 9th digit (a final carry
-// out of digit 7, i.e. value >= 0x7F80...80 territory) — mirroring the
-// Python oracle's assertion instead of silently corrupting planes.
-int signed_digits_fill(const uint64_t* mat, uint64_t count, int8_t* out) {
-    int overflow = 0;
-    for (uint64_t i = 0; i < count; i++) {
-        uint64_t rem = mat[i];
-        int carry = 0;
-        for (int d = 0; d < 8; d++) {
-            int v = (int)(rem & 0xFF) + carry;
-            carry = v >= 128;
-            if (carry) v -= 256;
-            out[(uint64_t)d * count + i] = (int8_t)v;
-            rem >>= 8;
-        }
-        overflow |= carry;
-    }
-    return overflow;
 }
 
 }  // extern "C"

@@ -1,28 +1,21 @@
-"""Device-native CKKS canonical embedding: the complex FFT as MXU int8
-digit-plane matmuls, with exact rounding to RNS and exact CRT composition
-on device.
+"""Device CKKS canonical embedding: a complex128 FFT, exact rounding to
+RNS and exact CRT composition, all on device.
 
-TPU-native redesign of the reference's GPU CKKS encoder kernels
+The reference runs the embedding as a double-precision FFT kernel
 (reference: src/ckks_cuda.cu:118 gFftTransferFromRevLayered, :833 ToRev,
-scale+round kernels :211-302, decode :103-209): where the reference runs
-log2(n) butterfly kernel launches in double precision, this module
-factors the length-n transform 4-step style (n = A x B) into two complex
-matrix multiplications plus one pointwise twiddle pass, and evaluates each
-complex matmul EXACTLY-ENOUGH on the int8 systolic array:
+scale+round kernels :211-302, decode :103-209). This module does the
+same with ``jnp.fft`` on complex128, in the operation order of the host
+oracle (``CKKSEncoder(host=True)``, which uses ``np.fft``):
 
-    every f64 operand is decomposed into 8 signed radix-128 digit planes
-    (56 bits of mantissa); one stacked int8 matmul with i32 accumulation
-    computes all plane-pair products; the 15 diagonal groups are
-    recombined in f64. Result error is ~2^-50 relative to the block
-    maximum — at least as accurate as the reference's double FFT for
-    every practical scale, and it runs on the MXU instead of emulated-f64
-    scalar code.
+    encode: V = conj-symmetric scatter of the slots; u = FFT(V) / n;
+            coeffs = Re(u * zeta^-k) * scale; round; decompose mod q_i;
+    decode: compose the centered integers; V = IFFT(coeffs * zeta^k) * n;
+            gather the slots at the 3^i orbit.
 
-The f64 -> RNS rounding and the RNS -> centered-value composition avoid
-both f64 bitcasts (unsupported by the TPU X64 rewrite) and host numpy:
-    - rounding: round-to-nearest-even in f64, then EXACT radix-2^32 chunk
-      extraction (floor/scale by powers of two is exact on integral f64),
-      then per-prime Barrett folds of the chunks;
+Both f64 <-> RNS conversions are exact at any magnitude:
+    - rounding: round-to-nearest-even in f64, then exact radix-2^32
+      chunk extraction (power-of-two scalings and integral subtractions
+      are exact in IEEE f64), then per-prime Shoup folds of the chunks;
     - composition: x_i = r_i * invp_i mod q_i, multiword accumulate of
       x_i * P_i in u64 words, conditional subtracts of Q, centering, then
       top-down f64 conversion.
@@ -36,275 +29,71 @@ from typing import List, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from . import ntt as dntt
 from . import u64ops as u
-from .ntt_mxu import _split_factors
+from ..utils import struct
 from ..utils.rns import RnsBase
 
 F64 = jnp.float64
+C128 = jnp.complex128
 U64 = jnp.uint64
-PLANES = 8                 # signed radix-128 digit planes = 56 bits
-_R128 = 2.0 ** 7
-_M32 = np.uint64(0xFFFFFFFF)
-
-
-# ---------------------------------------------------------------------------
-# host precompute
-# ---------------------------------------------------------------------------
-
-def _planes_host(m: np.ndarray) -> Tuple[np.ndarray, int]:
-    """f64 matrix -> (PLANES, R, C) int8 radix-128 planes + exponent e such
-    that m ~= (sum_p planes_p * 128^-(p+1)) * 2^e (residual < 2^(e-55))."""
-    amax = float(np.max(np.abs(m)))
-    e = int(np.frexp(amax)[1]) + 1 if amax > 0 else 0   # |m| * 2^-e < 0.5
-    r = m * (2.0 ** -e)
-    out = np.zeros((PLANES,) + m.shape, dtype=np.int8)
-    for p in range(PLANES):
-        d = np.rint(r * _R128)
-        out[p] = d.astype(np.int8)
-        r = r * _R128 - d
-    return out, e
-
-
-def _real_rep_left(m: np.ndarray) -> np.ndarray:
-    """Complex (R, C) -> real (2R, 2C) so that
-    [yr; yi] = rep @ [xr; xi] computes y = m @ x."""
-    return np.block([[m.real, -m.imag], [m.imag, m.real]])
-
-
-def _real_rep_right(m: np.ndarray) -> np.ndarray:
-    """Complex (R, C) -> real (2R, 2C) so that
-    [yr | yi] = [xr | xi] @ rep computes y = x @ m."""
-    return np.block([[m.real, m.imag], [-m.imag, m.real]])
 
 
 class EmbedTables(struct.PyTreeNode):
-    """Constant tables for one polynomial degree n = A x B.
+    """Constant tables for one polynomial degree n: the twist factors
+    zeta^k (decode) and zeta^-k (encode), and the slot orbit."""
 
-    Encode evaluates u = FFT(V)/n then coeffs = Re(u * untwist) (the
-    inverse canonical embedding); decode evaluates V = conj-FFT(c * twist)
-    at the slot orbit (the forward embedding). Both directions factor as
-    out[p2*A + p1] = sum_b [sum_a C[a,b] W1[p1,a]] Tw[p1,b] W2[b,p2]."""
-
-    w1e: jnp.ndarray           # (PLANES, 2A, 2A) int8 — encode stage 1
-    w2e: jnp.ndarray           # (PLANES, 2B, 2B) int8 — encode stage 2
-    twe_re: jnp.ndarray        # (A, B) f64 encode twiddles
-    twe_im: jnp.ndarray
-    w1d: jnp.ndarray           # decode direction (conjugate, no 1/n)
-    w2d: jnp.ndarray
-    twd_re: jnp.ndarray
-    twd_im: jnp.ndarray
-    untwist_re: jnp.ndarray    # (n,) f64 zeta^-k
-    untwist_im: jnp.ndarray
-    twist_re: jnp.ndarray      # (n,) f64 zeta^k
-    twist_im: jnp.ndarray
+    untwist_re: jnp.ndarray    # (n,) f64 Re zeta^-k
+    untwist_im: jnp.ndarray    # (n,) f64 Im zeta^-k
+    twist: jnp.ndarray         # (n,) c128 zeta^k
     slot_index: jnp.ndarray    # (n/2,) i32: slot i <-> coeff index (3^i-1)/2
+    spread: jnp.ndarray        # (n,) i32: V[j] = [v, conj(v)][spread[j]]
     n: int = struct.field(pytree_node=False)
-    a: int = struct.field(pytree_node=False)
-    b: int = struct.field(pytree_node=False)
-    e_w1e: int = struct.field(pytree_node=False)
-    e_w2e: int = struct.field(pytree_node=False)
-    e_w1d: int = struct.field(pytree_node=False)
-    e_w2d: int = struct.field(pytree_node=False)
 
 
 @lru_cache(maxsize=None)
 def make_embed_tables(n: int) -> EmbedTables:
-    A, B = _split_factors(n)
     j = np.arange(n)
-
-    # exponents reduced mod n BEFORE exponentiation: om**k for k ~ n*A
-    # loses ~k*eps of angle accuracy, which would dominate the pipeline
-    def omk(k):
-        return np.exp(-2j * np.pi * (k % n) / n)     # numpy-FFT sign
-
-    a_idx = np.arange(A)
-    b_idx = np.arange(B)
-    w1 = omk(B * np.outer(a_idx, a_idx))             # (p1, a) symmetric
-    tw = omk(np.outer(a_idx, b_idx))                 # (p1, b)
-    w2 = omk(A * np.outer(b_idx, b_idx))             # (b, p2)
-
-    w1e, e_w1e = _planes_host(_real_rep_left(w1 / n))
-    w2e, e_w2e = _planes_host(_real_rep_right(w2))
-    w1d, e_w1d = _planes_host(_real_rep_left(np.conj(w1)))
-    w2d, e_w2d = _planes_host(_real_rep_right(np.conj(w2)))
-
-    twist = np.exp(1j * np.pi * j / n)               # zeta^k
     slots = n // 2
     idx = np.zeros(slots, dtype=np.int32)
     pos = 1
     for i in range(slots):
         idx[i] = (pos - 1) >> 1
         pos = (pos * 3) % (2 * n)
-
-    as64 = lambda m: jnp.asarray(np.ascontiguousarray(m), dtype=F64)
+    # the slot orbit and its mirror cover every evaluation index once
+    spread = np.zeros(n, dtype=np.int32)
+    spread[idx] = np.arange(slots)
+    spread[n - 1 - idx] = slots + np.arange(slots)
+    # the same numpy expressions as the host oracle's (ckks.CKKSEncoder)
+    untwist = np.exp(-1j * np.pi * j / n)
     return EmbedTables(
-        w1e=jnp.asarray(w1e), w2e=jnp.asarray(w2e),
-        twe_re=as64(tw.real), twe_im=as64(tw.imag),
-        w1d=jnp.asarray(w1d), w2d=jnp.asarray(w2d),
-        twd_re=as64(tw.real), twd_im=as64(-tw.imag),
-        untwist_re=as64(twist.real), untwist_im=as64(-twist.imag),
-        twist_re=as64(twist.real), twist_im=as64(twist.imag),
+        untwist_re=jnp.asarray(untwist.real, dtype=F64),
+        untwist_im=jnp.asarray(untwist.imag, dtype=F64),
+        twist=jnp.asarray(np.exp(1j * np.pi * j / n), dtype=C128),
         slot_index=jnp.asarray(idx),
-        n=n, a=A, b=B,
-        e_w1e=e_w1e, e_w2e=e_w2e, e_w1d=e_w1d, e_w2d=e_w2d,
+        spread=jnp.asarray(spread),
+        n=n,
     )
 
 
-# ---------------------------------------------------------------------------
-# split-precision matmul on the MXU
-# ---------------------------------------------------------------------------
-
-# per-plane weights: W planes are uniform radix-128 digits (host-exact
-# extraction); X planes are two float32 PARTS of four digits each — the
-# second part carries the bits below the top float32's 24-bit mantissa.
-_W_WEIGHTS = tuple(2.0 ** (-7 * (p + 1)) for p in range(PLANES))
-_X_WEIGHTS = tuple(2.0 ** (-7 * (p + 1)) for p in range(4)) + \
-    tuple(2.0 ** -24 * 2.0 ** (-7 * (p + 1)) for p in range(4))
-
-
-def _extract_planes(x: jnp.ndarray):
-    """f64 (R, C) -> ((PLANES, R, C) int8 with _X_WEIGHTS, back f64 scalar).
-
-    TPU-emulation-proof digit extraction: on TPU, f64 is a float32 pair
-    whose CHAINED rint/subtract loops occasionally de-normalize (observed:
-    one element in 8k reconstructing 1e-3 off). So after ONE dd multiply
-    (block normalization) the value is split into two native float32
-    parts — hi = f32(r), lo = f32((r - hi) * 2^24) — and each part's four
-    radix-128 digits are peeled in PURE float32, which is native and
-    error-free on every backend (rr*128 is exact scaling, the digit
-    subtraction cancels exactly inside the 24-bit mantissa)."""
-    ax = jnp.max(jnp.abs(x))
-    safe = jnp.where(ax > 0, ax, 1.0)
-    s = 0.25 / safe
-    back = safe * 4.0
-    r = x * s                                # |r| <= 0.25 (+1 ulp)
-    hi = r.astype(jnp.float32)
-    tail = (r - hi.astype(F64)).astype(jnp.float32)   # f32-rounding tail
-
-    planes = []
-
-    def peel(rr):
-        for _ in range(4):
-            d = jnp.rint(rr * jnp.float32(_R128))
-            d = jnp.clip(d, -127.0, 127.0)   # wrap insurance for the cast
-            planes.append(d.astype(jnp.int8))
-            rr = rr * jnp.float32(_R128) - d
-        return rr
-
-    res1 = peel(hi)          # digits at absolute levels 2^-7 .. 2^-28;
-    # the returned residual is in 2^28-scaled units. The second part
-    # carries BOTH the f32-rounding tail and part 1's sub-2^-28 residual
-    # (small elements keep mantissa below the digit floor); one f32 add
-    # (<= 2^-50 absolute rounding, under the input's own emulated-f64
-    # noise floor), then four more digit levels at 2^-31 .. 2^-52.
-    peel(tail * jnp.float32(2.0 ** 24) + res1 * jnp.float32(2.0 ** -4))
-    return jnp.stack(planes), back
-
-
-def _diag_recombine(prod: jnp.ndarray, scale: float) -> jnp.ndarray:
-    """(..., P, P, R, C) i32 plane-pair products -> f64 (..., R, C):
-    convert each pair exactly to f64 and fold the per-plane weights
-    (W plane p x X plane q -> _W_WEIGHTS[p] * _X_WEIGHTS[q], times the
-    static matrix exponent)."""
-    out = None
-    for p in range(PLANES):
-        for q in range(PLANES):
-            t = prod[..., p, q, :, :].astype(F64) * (
-                scale * _W_WEIGHTS[p] * _X_WEIGHTS[q])
-            out = t if out is None else out + t
-    return out
-
-
-def _split_matmul_left(w_planes: jnp.ndarray, x: jnp.ndarray,
-                       e_w: int) -> jnp.ndarray:
-    """Exact-enough (W @ X): W given as int8 planes (PLANES, R, K) with
-    exponent e_w, X f64 (K, M). One stacked int8 MXU matmul."""
-    xp, back = _extract_planes(x)                    # (P, K, M)
-    P = PLANES
-    R, K = w_planes.shape[1], w_planes.shape[2]
-    M = x.shape[-1]
-    wd = w_planes.reshape(P * R, K)
-    xt = jnp.moveaxis(xp, 0, 1).reshape(K, P * M)
-    prod = jax.lax.dot_general(
-        wd, xt, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)            # (P*R, P*M)
-    prod = prod.reshape(P, R, P, M)
-    prod = jnp.moveaxis(prod, 2, 1)                  # (P, P, R, M)
-    return _diag_recombine(prod, 2.0 ** e_w) * back
-
-
-def _split_matmul_right(x: jnp.ndarray, w_planes: jnp.ndarray,
-                        e_w: int) -> jnp.ndarray:
-    """Exact-enough (X @ W): X f64 (R, K), W int8 planes (PLANES, K, C)."""
-    xp, back = _extract_planes(x)                    # (P, R, K)
-    P = PLANES
-    K, C = w_planes.shape[1], w_planes.shape[2]
-    R = x.shape[0]
-    xt = jnp.moveaxis(xp, 0, 1).reshape(R * P, K)
-    wt = jnp.moveaxis(w_planes, 0, 1).reshape(K, P * C)
-    prod = jax.lax.dot_general(
-        xt, wt, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)            # (R*P, P*C)
-    prod = prod.reshape(R, P, P, C)                  # [r, x-digit, w-digit, c]
-    # recombine expects the W digit FIRST (weights are asymmetric:
-    # _W_WEIGHTS[p] * _X_WEIGHTS[q])
-    prod = jnp.transpose(prod, (2, 1, 0, 3))         # (P_w, P_x, R, C)
-    return _diag_recombine(prod, 2.0 ** e_w) * back
-
-
-def _four_step(c_re: jnp.ndarray, c_im: jnp.ndarray, t: EmbedTables,
-               encode: bool) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """The shared 4-step complex transform over the last axis (length n):
-    out[p2*A+p1] = sum_b [sum_a C[a,b] W1[p1,a]] Tw[p1,b] W2[b,p2]."""
-    A, B, n = t.a, t.b, t.n
-    w1, w2 = (t.w1e, t.w2e) if encode else (t.w1d, t.w2d)
-    e1, e2 = (t.e_w1e, t.e_w2e) if encode else (t.e_w1d, t.e_w2d)
-    tw_re, tw_im = (t.twe_re, t.twe_im) if encode else (t.twd_re, t.twd_im)
-
-    x = jnp.concatenate([c_re.reshape(A, B), c_im.reshape(A, B)], axis=0)
-    s1 = _split_matmul_left(w1, x, e1)               # (2A, B)
-    s1r, s1i = s1[:A], s1[A:]
-    s2r = s1r * tw_re - s1i * tw_im
-    s2i = s1r * tw_im + s1i * tw_re
-    y = jnp.concatenate([s2r, s2i], axis=1)          # (A, 2B)
-    out = _split_matmul_right(y, w2, e2)             # (A, 2B)
-    out_re = out[:, :B].T.reshape(n)                 # k = p2*A + p1
-    out_im = out[:, B:].T.reshape(n)
-    return out_re, out_im
-
-
-def embed_inverse(v_re: jnp.ndarray, v_im: jnp.ndarray,
-                  t: EmbedTables) -> jnp.ndarray:
-    """Encode direction: conj-symmetric evaluation vector V (n,) ->
-    real polynomial coefficients Re(untwist * FFT(V)/n)."""
-    u_re, u_im = _four_step(v_re, v_im, t, encode=True)
-    return u_re * t.untwist_re - u_im * t.untwist_im
-
-
-def embed_forward(coeffs: jnp.ndarray,
-                  t: EmbedTables) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Decode direction: real coefficients (n,) -> slot values (n/2,)
-    as (re, im): V = conj-FFT(coeffs * twist), gathered at the 3^i orbit."""
-    y_re = coeffs * t.twist_re
-    y_im = coeffs * t.twist_im
-    v_re, v_im = _four_step(y_re, y_im, t, encode=False)
-    return v_re[t.slot_index], v_im[t.slot_index]
-
-
-def scatter_slots(values_re: jnp.ndarray, values_im: jnp.ndarray,
-                  t: EmbedTables) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Slot values (m <= n/2,) -> conj-symmetric evaluation vector (n,):
-    V[idx_i] = v_i, V[n-1-idx_i] = conj(v_i)."""
+def embed_inverse(values: jnp.ndarray, t: EmbedTables) -> jnp.ndarray:
+    """Encode direction: slot values (m <= n/2,) complex -> real
+    polynomial coefficients Re(zeta^-k * FFT(V) / n), V the
+    conjugate-symmetric evaluation vector (unused slots zero). V is
+    built by one gather: a complex128 scatter runs serially on the GPU
+    (~190 ms at n=16384, H100)."""
     n = t.n
-    m = values_re.shape[0]
-    idx = t.slot_index[:m]
-    v_re = jnp.zeros(n, F64).at[idx].set(values_re)
-    v_re = v_re.at[n - 1 - idx].set(values_re)
-    v_im = jnp.zeros(n, F64).at[idx].set(values_im)
-    v_im = v_im.at[n - 1 - idx].set(-values_im)
-    return v_re, v_im
+    v = jnp.pad(values, (0, n // 2 - values.shape[0]))
+    v = jnp.concatenate([v, jnp.conj(v)])[t.spread]
+    w = jnp.fft.fft(v) / n
+    return jnp.real(w) * t.untwist_re - jnp.imag(w) * t.untwist_im
+
+
+def embed_forward(coeffs: jnp.ndarray, t: EmbedTables) -> jnp.ndarray:
+    """Decode direction: real coefficients (n,) -> the full evaluation
+    vector IFFT(coeffs * zeta^k) * n (complex, length n)."""
+    return jnp.fft.ifft(coeffs * t.twist) * t.n
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +103,7 @@ def scatter_slots(values_re: jnp.ndarray, values_im: jnp.ndarray,
 class RnsRoundTables(struct.PyTreeNode):
     """Per-(n, level) constants for exact rounding/composition.
 
-    chunks: radix-2^32 pieces of |round(c)| (exact on integral f64);
+    chunks: radix-2^32 pieces of round(c) (exact on integral f64);
     pow32[i, j] = 2^(32 j) mod q_i with Shoup quotients for the folds.
     Composition: punct[i] = prod_{l != i} q_l as multiwords, invp[i] =
     punct[i]^-1 mod q_i, qwords/qhalf for the final reduce + centering."""
@@ -369,20 +158,21 @@ def make_rns_round_tables(q_values: Tuple[int, ...]) -> RnsRoundTables:
 
 
 def _peel_pieces(v: jnp.ndarray, maxw: int):
-    """Peel a rounded f64 value into signed radix-2^32 pieces, TOP-DOWN:
-    r starts at the scale of the top piece (reached by ITERATED *2^-32
-    steps — never materializing 2^(32m) constants, which overflow the
-    TPU's float32-pair f64 emulation for m >= 4), and each level does
-    p = rint(r); r = (r - p) * 2^32. Every scaling is a power-of-two
-    (error-free); the subtraction is an exact cancellation; an emulated
-    rint's occasional off-by-one is absorbed exactly by the next piece
-    (stored piece == subtracted piece keeps the telescoping sum exact).
-    Pieces are |.| <= ~2^33. Returns [(piece_f64, level)] top first."""
-    r = v
-    for _ in range(maxw - 1):
-        r = r * (2.0 ** -32)
+    """Peel an integral f64 value into signed radix-2^32 pieces, top
+    down: r starts at the scale of the top piece, and each level does
+    p = rint(r); r = (r - p) * 2^32. Every step is exact in IEEE f64
+    (power-of-two scalings, an integral subtraction), so the pieces sum
+    back to v exactly. Returns [(piece_f64, level)] top first.
+
+    A finite f64 is below 2^1024, so no piece above level 31 is ever
+    non-zero (the level-31 piece is at most 2^32, whose high part the
+    fold carries into level 32). Starting at level <= 31 also keeps the
+    first scaling 2^(-32 top) >= 2^-992 a normal f64: a larger ladder
+    would scale by a subnormal or by 0.0 and lose every piece."""
+    top = min(maxw - 1, 31)
+    r = v * (2.0 ** (-32 * top))
     pieces = []
-    for m in range(maxw - 1, 0, -1):
+    for m in range(top, 0, -1):
         p = jnp.rint(r)
         pieces.append((p, m))
         r = (r - p) * (2.0 ** 32)
@@ -397,17 +187,9 @@ def _fold_pieces(pieces, rt: RnsRoundTables) -> jnp.ndarray:
         acc = None
         for p, m in pieces:
             neg = p < 0.0
-            ap = jnp.abs(p)                           # <= ~2^33
-            hi = jnp.floor(ap * (2.0 ** -32))         # tiny, exact
+            ap = jnp.abs(p)
+            hi = jnp.floor(ap * (2.0 ** -32))
             lo = ap - hi * (2.0 ** 32)
-            # insurance against an emulated-f64 floor slip: keep lo in
-            # [0, 2^32) so the uint32 casts below cannot wrap
-            slip_lo = lo < 0.0
-            hi = jnp.where(slip_lo, hi - 1.0, hi)
-            lo = jnp.where(slip_lo, lo + 2.0 ** 32, lo)
-            slip_hi = lo >= 2.0 ** 32
-            hi = jnp.where(slip_hi, hi + 1.0, hi)
-            lo = jnp.where(slip_hi, lo - 2.0 ** 32, lo)
             hi = hi.astype(jnp.uint32).astype(U64)
             lo = lo.astype(jnp.uint32).astype(U64)
             term = u.mul_mod_shoup(lo, rt.pow32[i, m],
@@ -425,82 +207,9 @@ def _fold_pieces(pieces, rt: RnsRoundTables) -> jnp.ndarray:
 def round_to_rns_device(coeffs: jnp.ndarray,
                         rt: RnsRoundTables) -> jnp.ndarray:
     """round-to-nearest-even of f64 coefficients, decomposed mod each q_i:
-    (n,) f64 -> (k, n) u64. Exact on true f64 at any magnitude.
-
-    NOTE (TPU): the float32-pair f64 emulation cannot even REPRESENT
-    values beyond ~2^127, and iterated down-scaling of deep ladders can
-    flush low bits to denormal zero; the ENCODE pipelines therefore
-    pre-split the scale host-side (scale = s_small * 2^E with the 2^E
-    fold done in modular space) so the f64 value stays below 2^45 and
-    the ladder depth is 2 — see round_to_rns_scaled."""
+    (n,) f64 -> (k, n) u64. Exact at any magnitude; bit-identical to the
+    host oracle's rounding (ckks._round_to_rns)."""
     return _fold_pieces(_peel_pieces(jnp.rint(coeffs), rt.maxw), rt)
-
-
-# 2-level ladder bound: |v| < 2^45 guaranteed by the host-side scale split
-_SMALL_MAXW = 2
-
-
-def round_to_rns_scaled(coeffs: jnp.ndarray, s_small: jnp.ndarray,
-                        pow2e: jnp.ndarray, pow2e_shoup: jnp.ndarray,
-                        rt: RnsRoundTables) -> jnp.ndarray:
-    """round(coeffs * s_small) * 2^E mod q_i, with 2^E folded in modular
-    space: (n,) f64 -> (k, n) u64. The host chooses E so that
-    |coeffs * s_small| < 2^45 and passes pow2e[i] = 2^E mod q_i.
-    For E = 0 this is bit-identical to the host oracle's rounding.
-
-    Emulation-proof decomposition (same rationale as _extract_planes):
-    after single-op f64 rint/abs, the integer is split into two EXACT
-    native float32 integers (vh = f32(av) has a 24-bit mantissa, so
-    vl = av - vh is an integer below 2^21 that f32 holds exactly), and
-    vh's 32-bit chunks are peeled in pure float32 — vh's low chunk has
-    at most 24 significant bits, so the cancellation is exact. No chained
-    f64-emulation arithmetic anywhere; every limb folds the same chunk
-    values, so the residues are CRT-consistent by construction."""
-    v = jnp.rint(coeffs * s_small)
-    neg = v < 0.0
-    av = jnp.abs(v)
-    vh = av.astype(jnp.float32)
-    vl = (av - vh.astype(F64)).astype(jnp.float32)    # integer, |.| <~ 2^21
-    hhi = jnp.rint(vh * jnp.float32(2.0 ** -32))
-    hlo = vh - hhi * jnp.float32(2.0 ** 32)
-    slip = hlo < 0.0
-    hhi = jnp.where(slip, hhi - 1.0, hhi)
-    hlo = jnp.where(slip, hlo + jnp.float32(2.0 ** 32), hlo)
-    slip2 = hlo >= jnp.float32(2.0 ** 32)
-    hhi = jnp.where(slip2, hhi + 1.0, hhi)
-    hlo = jnp.where(slip2, hlo - jnp.float32(2.0 ** 32), hlo)
-    vl_neg = vl < 0.0
-    u_hhi = hhi.astype(jnp.uint32).astype(U64)        # <= 2^13
-    u_hlo = hlo.astype(jnp.uint32).astype(U64)        # < 2^32
-    u_vl = jnp.abs(vl).astype(jnp.uint32).astype(U64)  # <= 2^21 < q
-
-    outs = []
-    for i, q in enumerate(rt.q_values):
-        hi_t = u.mul_mod_shoup(u_hhi, rt.pow32[i, 1],
-                               rt.pow32_shoup[i, 1], q)
-        lo_t = u.barrett_reduce_64(
-            u_hlo, q, ((1 << 128) // q) >> 64)
-        acc = u.add_mod(hi_t, lo_t, q)
-        vl_t = jnp.where(vl_neg, u.neg_mod(u_vl, q), u_vl)
-        acc = u.add_mod(acc, vl_t, q)
-        acc = jnp.where(neg, u.neg_mod(acc, q), acc)
-        outs.append(u.mul_mod_shoup(acc, pow2e[i], pow2e_shoup[i], q))
-    return jnp.stack(outs)
-
-
-def scale_split_host(scale: float, bound: float,
-                     q_values) -> Tuple[float, np.ndarray, np.ndarray]:
-    """Host-side split scale = s_small * 2^E with |values|*s_small < 2^44:
-    returns (s_small, pow2e (k,) u64, pow2e_shoup (k,) u64)."""
-    import math
-    if bound <= 0.0 or not math.isfinite(bound):
-        bound = 1.0
-    e = max(0, int(math.ceil(math.log2(bound))) - 44)
-    s_small = scale * (2.0 ** -e)
-    pow2e = np.array([pow(2, e, q) for q in q_values], dtype=np.uint64)
-    shoup = np.array([(pow(2, e, q) << 64) // q for q in q_values],
-                     dtype=np.uint64)
-    return s_small, pow2e, shoup
 
 
 def _mw_add_scaled(acc: List[jnp.ndarray], x: jnp.ndarray,
@@ -586,54 +295,45 @@ def compose_centered_device(residues: jnp.ndarray,
 # fused pipelines (jitted by the encoder)
 # ---------------------------------------------------------------------------
 
-def encode_pipeline(v_re, v_im, s_small, pow2e, pow2e_shoup,
-                    emb: EmbedTables, rt: RnsRoundTables, ntt_tables):
-    """Slot values -> NTT-form RNS plaintext words (k, n), all on device.
-    The scale arrives pre-split host-side (scale_split_host) so every f64
-    stays inside the TPU emulation's exact-integer zone."""
-    from . import ntt as dntt
-    V_re, V_im = scatter_slots(v_re, v_im, emb)
-    coeffs = embed_inverse(V_re, V_im, emb)
-    rns = round_to_rns_scaled(coeffs, s_small, pow2e, pow2e_shoup, rt)
-    return dntt.rns_ntt_forward(rns, ntt_tables)
+@jax.jit
+def encode_pipeline(values, scale, emb: EmbedTables, rt: RnsRoundTables,
+                    ntt_tables):
+    """Slot values (complex) -> NTT-form RNS plaintext words (k, n)."""
+    coeffs = embed_inverse(values, emb) * scale
+    return dntt.rns_ntt_forward(round_to_rns_device(coeffs, rt), ntt_tables)
 
 
-def encode_polynomial_pipeline(coeffs, s_small, pow2e, pow2e_shoup,
-                               emb: EmbedTables, rt: RnsRoundTables,
+@jax.jit
+def encode_polynomial_pipeline(coeffs, scale, rt: RnsRoundTables,
                                ntt_tables):
     """Raw real coefficients -> NTT-form RNS words (no embedding;
     ckks_cuda.cu:455 encodePolynomial analogue)."""
-    from . import ntt as dntt
-    rns = round_to_rns_scaled(coeffs, s_small, pow2e, pow2e_shoup, rt)
-    return dntt.rns_ntt_forward(rns, ntt_tables)
+    return dntt.rns_ntt_forward(round_to_rns_device(coeffs * scale, rt),
+                                ntt_tables)
 
 
-def encode_stats_pipeline(v_re, v_im, s_small, pow2e, pow2e_shoup,
-                          emb: EmbedTables, rt: RnsRoundTables, ntt_tables):
+@jax.jit
+def encode_stats_pipeline(values, scale, emb: EmbedTables,
+                          rt: RnsRoundTables, ntt_tables):
     """encode_pipeline plus the device max-|coefficient| statistic
     (reference: src/ckks_cuda.cu:178-209 gMaxReal, used at :386-407 for
-    the exact magnitude check). Returns (data, max_small) where
-    max_small = max |round(coeffs * s_small)| — the true coefficient
-    magnitude is max_small * 2^E with E the host scale-split exponent
-    (kept split because 2^E can exceed the TPU f64 emulation's ~2^127
-    range). XLA CSEs the shared subexpressions with the rounding path."""
-    from . import ntt as dntt
-    V_re, V_im = scatter_slots(v_re, v_im, emb)
-    coeffs = embed_inverse(V_re, V_im, emb)
-    max_small = jnp.max(jnp.abs(jnp.rint(coeffs * s_small)))
-    rns = round_to_rns_scaled(coeffs, s_small, pow2e, pow2e_shoup, rt)
-    return dntt.rns_ntt_forward(rns, ntt_tables), max_small
+    the exact magnitude check). Returns (data, max |round(coeffs)|)."""
+    coeffs = jnp.rint(embed_inverse(values, emb) * scale)
+    data = dntt.rns_ntt_forward(round_to_rns_device(coeffs, rt), ntt_tables)
+    return data, jnp.max(jnp.abs(coeffs))
 
 
+@jax.jit
 def decode_pipeline(data, inv_scale, emb: EmbedTables, rt: RnsRoundTables,
                     ntt_tables):
-    """NTT-form RNS words (k, n) -> slot values ((n/2,) re, im), on device."""
-    from . import ntt as dntt
-    residues = dntt.rns_ntt_inverse(data, ntt_tables)
-    coeffs = compose_centered_device(residues, rt) * inv_scale
-    return embed_forward(coeffs, emb)
+    """NTT-form RNS words (k, n) -> slot values ((n/2,) re, im)."""
+    coeffs = compose_centered_device(
+        dntt.rns_ntt_inverse(data, ntt_tables), rt) * inv_scale
+    v = embed_forward(coeffs, emb)[emb.slot_index]
+    return jnp.real(v), jnp.imag(v)
 
 
+@jax.jit
 def decode_stats_pipeline(data, inv_scale, emb: EmbedTables,
                           rt: RnsRoundTables, ntt_tables):
     """decode_pipeline plus a device max-error estimate.
@@ -647,36 +347,18 @@ def decode_stats_pipeline(data, inv_scale, emb: EmbedTables,
     is the decode-side counterpart of the reference's device max-tracking
     kernel (src/ckks_cuda.cu:178-209 gMaxReal). Returns (re, im, max_err)
     with max_err a device f64 scalar."""
-    from . import ntt as dntt
-    residues = dntt.rns_ntt_inverse(data, ntt_tables)
-    coeffs = compose_centered_device(residues, rt) * inv_scale
-    y_re = coeffs * emb.twist_re
-    y_im = coeffs * emb.twist_im
-    v_re, v_im = _four_step(y_re, y_im, emb, encode=False)
+    coeffs = compose_centered_device(
+        dntt.rns_ntt_inverse(data, ntt_tables), rt) * inv_scale
+    v = embed_forward(coeffs, emb)
     idx = emb.slot_index
-    re, im = v_re[idx], v_im[idx]
-    conj_re, conj_im = v_re[emb.n - 1 - idx], v_im[emb.n - 1 - idx]
-    err = jnp.maximum(jnp.max(jnp.abs(re - conj_re)),
-                      jnp.max(jnp.abs(im + conj_im)))
-    return re, im, err
+    slot, mirror = v[idx], v[emb.n - 1 - idx]
+    err = jnp.maximum(jnp.max(jnp.abs(jnp.real(slot) - jnp.real(mirror))),
+                      jnp.max(jnp.abs(jnp.imag(slot) + jnp.imag(mirror))))
+    return jnp.real(slot), jnp.imag(slot), err
 
 
+@jax.jit
 def decode_polynomial_pipeline(data, inv_scale, rt: RnsRoundTables,
                                ntt_tables):
-    residues = dntt_inverse(data, ntt_tables)
-    return compose_centered_device(residues, rt) * inv_scale
-
-
-def dntt_inverse(data, ntt_tables):
-    from . import ntt as dntt
-    return dntt.rns_ntt_inverse(data, ntt_tables)
-
-
-encode_pipeline_jit = jax.jit(encode_pipeline)
-encode_stats_pipeline_jit = jax.jit(encode_stats_pipeline)
-encode_polynomial_pipeline_jit = jax.jit(encode_polynomial_pipeline)
-decode_pipeline_jit = jax.jit(decode_pipeline)
-decode_stats_pipeline_jit = jax.jit(decode_stats_pipeline)
-decode_polynomial_pipeline_jit = jax.jit(
-    lambda data, inv_scale, rt, ntt_tables:
-    compose_centered_device(dntt_inverse(data, ntt_tables), rt) * inv_scale)
+    return compose_centered_device(
+        dntt.rns_ntt_inverse(data, ntt_tables), rt) * inv_scale

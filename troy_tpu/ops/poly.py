@@ -1,6 +1,6 @@
 """Elementwise RNS polynomial arithmetic and plain-embedding ops on device.
 
-TPU-native equivalents of the reference's poly kernels and scaling variant
+The reference's poly kernels and scaling variant
 (reference: src/kernelutils.cu:30-186 add/sub/negate/scalar-mul,
 src/scalingvariant.cpp / scalingvariant_cuda.cu multiplyAddPlainWithScalingVariant).
 
@@ -107,7 +107,7 @@ def bfv_multiply_add_plain(m: jnp.ndarray, c0: jnp.ndarray,
     The 128/64 exact division subtracts the Barrett remainder, shifts out
     the power-of-two part of t, then multiplies by the inverse of the odd
     part mod 2^64 — the quotient is < 2^64 so the wrap-around product is
-    exact (TPU-friendly: no long division; handles even t like 2^41).
+    exact (no long division; handles even t like 2^41).
     """
     tt = plain_modulus
     half = (tt + 1) >> 1

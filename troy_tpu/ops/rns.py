@@ -1,6 +1,6 @@
 """RNS base conversion and BEHZ tool operations on device.
 
-TPU-native re-design of the reference's RNS kernels
+The reference's RNS kernels
 (reference: src/utils/rns_cuda.cu:96-625). An RNS polynomial is a uint64
 array of shape (k, n) — limb-major. Every modulus, base-change matrix entry
 and scalar precompute comes in as a *static* Python int from
@@ -72,7 +72,8 @@ def exact_convert(x: jnp.ndarray, conv: BaseConverter) -> jnp.ndarray:
     The reference estimates alpha with f64 accumulation; we use Q.64
     fixed-point integer arithmetic (each term computed through the 128-bit
     Barrett ratio floor(2^128/q_i), truncated to 64 fractional bits) —
-    deterministic on TPU and strictly more precise than doubles."""
+    deterministic on every backend and strictly more precise than
+    doubles."""
     ib, ob = conv.ibase, conv.obase
     if ob.size != 1:
         raise ValueError("exact_convert requires a single output modulus")

@@ -1,19 +1,24 @@
-"""Multi-chip execution: device meshes and sharded ciphertext batches.
+"""Multi-device execution: device meshes and sharded ciphertext batches.
 
 The reference is strictly single-GPU (cudaSetDevice(0) hard-coded,
 reference: src/kernelprovider.cuh:30; no NCCL/MPI anywhere) — its only
-parallelism is SIMT within one chip. This module is where our framework
-goes beyond it: ciphertext-batch data parallelism over a
-``jax.sharding.Mesh`` (DP across chips/hosts over ICI/DCN), RNS-limb
-tensor parallelism, coefficient-sharded NTT, and the combined 2-D
-regime — all derived from sharding annotations (the scaling-book recipe:
-annotate, compile, let GSPMD place the collectives over ICI).
+parallelism is SIMT within one card. This module goes beyond it over a
+``jax.sharding.Mesh`` of the cards of one host, which NVLink joins all
+to all (every card reaches every other at the same rate, so a mesh's
+shape follows the algorithm alone): ciphertext-batch data parallelism,
+RNS-limb tensor parallelism, the coefficient-sharded NTT, and the
+combined 2-D regime — all derived from sharding annotations (annotate,
+compile, let GSPMD place the collectives, which XLA hands to NCCL).
 
 Covered op surface (SURVEY.md section 2.2 mapping):
 - multiply+relinearize (the headline op) under all four regimes,
 - Galois/rotation (permute + key switch) under limb and 2-D regimes,
 - mod-switch / CKKS rescale under limb and 2-D regimes,
 - the app-layer matmul tile contraction under DP.
+
+Every regime builder places the tables and keys on the mesh once, when
+it is built (replicated, or split like the data they meet), so no call
+copies them between devices.
 """
 
 from __future__ import annotations
@@ -44,9 +49,8 @@ def make_mesh(n_devices: Optional[int] = None,
 
 def make_mesh_2d(dp: int, tp: int,
                  axis_names: Sequence[str] = ("dp", "tp")) -> Mesh:
-    """A (dp, tp) 2-D mesh: batch parallelism on the outer axis (DCN-friendly
-    across hosts), limb/tensor parallelism on the inner axis (ICI-adjacent
-    devices)."""
+    """A (dp, tp) 2-D mesh: batch parallelism on the outer axis,
+    limb/tensor parallelism on the inner axis."""
     devs = jax.devices()
     if dp * tp > len(devs):
         raise ValueError(f"mesh {dp}x{tp} exceeds {len(devs)} devices")
@@ -66,7 +70,7 @@ def shard_batch(mesh: Mesh, data: jnp.ndarray,
 #
 # cd/key/key_cd are jit ARGUMENTS (replicated), never closures: a
 # closed-over device array becomes an embedded constant — a trace-time
-# device readback and a far slower executable on the TPU backend.
+# device readback and a far slower executable.
 # ---------------------------------------------------------------------------
 
 def _mult_relin_step(scheme: SchemeType):
@@ -120,12 +124,25 @@ def _mod_switch_step(scheme: SchemeType):
     return lambda data, cd: ev_mod._bgv_mod_switch_scale(data, cd)
 
 
-def _runner(jitted, *const_args):
+def _runner(jitted, mesh: Mesh, const_args, const_specs):
+    """Bind the tables/keys once, placed as the jitted program expects:
+    replicated on every device of the mesh (spec None) or split by their
+    own spec. Left uncommitted, they would sit on device 0 and be copied
+    to every device on every call."""
+    placed = tuple(jax.device_put(
+        a, NamedSharding(mesh, P()) if spec is None else spec)
+        for a, spec in zip(const_args, const_specs))
+
     def run(*data_args):
-        return jitted(*data_args, *const_args)
+        return jitted(*data_args, *placed)
     run.jitted = jitted          # exposed for HLO inspection in tests
-    run.args = const_args
+    run.args = placed
     return run
+
+
+def _level_cd(context: HeContext, level: Optional[int]) -> ContextData:
+    return context.get_context_data(
+        context.first_level if level is None else level)
 
 
 # ---------------------------------------------------------------------------
@@ -146,12 +163,15 @@ def batched_multiply_relin(context: HeContext, relin_keys: RelinKeys,
     spec = NamedSharding(mesh, P(axis_name))
     jitted = jax.jit(batched, in_shardings=(spec, spec, None, None, None),
                      out_shardings=spec)
-    return _runner(jitted, context.first_context_data, relin_keys.keys[2],
-                   context.key_context_data)
+    return _runner(jitted, mesh, (context.first_context_data,
+                                  relin_keys.keys[2],
+                                  context.key_context_data),
+                   (None, None, None))
 
 
 def limb_sharded_multiply_relin(context: HeContext, relin_keys: RelinKeys,
-                                mesh: Mesh, axis_name: str = "dp"):
+                                mesh: Mesh, axis_name: str = "dp",
+                                level: Optional[int] = None):
     """Single-ciphertext multiply+relinearize with the RNS-LIMB axis
     sharded over the mesh (tensor-parallel analogue; SURVEY.md section 2.2
     mapping: "RNS-limb sharding").
@@ -160,13 +180,14 @@ def limb_sharded_multiply_relin(context: HeContext, relin_keys: RelinKeys,
     across limbs; the cross-limb contractions — the BEHZ base conversions
     (q -> Bsk) and the key-switch inner product over decomposition limbs —
     have their reduction axis sharded, so GSPMD lowers them to local
-    partial products + an ICI reduce (psum), exactly the hand-written
-    NCCL pattern a multi-GPU port would need, derived from annotations.
+    partial products + a cross-device reduce (psum), the pattern a
+    hand-written multi-GPU port would issue through NCCL.
 
-    The mesh must be no larger than the data-limb count (one or more
-    limbs per device); with fewer limbs than devices GSPMD degenerates to
-    replication — no communication, no scaling.
+    The level's data-limb count must divide by the mesh size (the key
+    is cut to the decomposition rows that level consumes, so it splits
+    the same way).
     """
+    cd = _level_cd(context, level)
     one = _mult_relin_step(context.scheme)
     # (size, k, n): shard the limb axis; the ksk (decomp, 2, key_limbs, n)
     # shards its decomposition axis to match the data limbs it consumes.
@@ -174,19 +195,22 @@ def limb_sharded_multiply_relin(context: HeContext, relin_keys: RelinKeys,
     key_spec = NamedSharding(mesh, P(axis_name, None, None, None))
     jitted = jax.jit(one, in_shardings=(spec, spec, None, key_spec, None),
                      out_shardings=spec)
-    return _runner(jitted, context.first_context_data, relin_keys.keys[2],
-                   context.key_context_data)
+    return _runner(jitted, mesh, (cd, relin_keys.keys[2][:cd.limbs],
+                                  context.key_context_data),
+                   (None, key_spec, None))
 
 
 def dp_limb_sharded_multiply_relin(context: HeContext,
                                    relin_keys: RelinKeys, mesh: Mesh,
                                    dp_axis: str = "dp",
-                                   tp_axis: str = "tp"):
-    """Combined DP x limb regime over a 2-D mesh (the dp x tp layout of a
-    production pod slice): ciphertext batches split over the outer axis,
-    each ciphertext's RNS limbs split over the inner axis. The limb-axis
-    contractions (BEHZ base conversion, key-switch inner product) reduce
-    over ICI within a dp group; no cross-group communication exists."""
+                                   tp_axis: str = "tp",
+                                   level: Optional[int] = None):
+    """Combined DP x limb regime over a 2-D mesh: ciphertext batches split
+    over the outer axis, each ciphertext's RNS limbs split over the inner
+    axis. The limb-axis contractions (BEHZ base conversion, key-switch
+    inner product) reduce within a dp group; no cross-group communication
+    exists."""
+    cd = _level_cd(context, level)
     one = _mult_relin_step(context.scheme)
     batched = jax.vmap(one, in_axes=(0, 0, None, None, None))
     # (B, size, k, n): batch over dp, limbs over tp; the ksk decomposition
@@ -196,8 +220,9 @@ def dp_limb_sharded_multiply_relin(context: HeContext,
     jitted = jax.jit(batched,
                      in_shardings=(spec, spec, None, key_spec, None),
                      out_shardings=spec)
-    return _runner(jitted, context.first_context_data, relin_keys.keys[2],
-                   context.key_context_data)
+    return _runner(jitted, mesh, (cd, relin_keys.keys[2][:cd.limbs],
+                                  context.key_context_data),
+                   (None, key_spec, None))
 
 
 def coeff_sharded_multiply_relin(context: HeContext, relin_keys: RelinKeys,
@@ -206,20 +231,21 @@ def coeff_sharded_multiply_relin(context: HeContext, relin_keys: RelinKeys,
     sharded over the mesh — the reference's impossible-by-design scaling
     axis (its N<=131072 ceiling is one GPU, defines.h:30).
 
-    The 4-step MXU NTT makes this natural for GSPMD: stage-1 matmuls
-    partition over the free (column) axis, the inter-stage transpose
-    becomes an all-to-all over ICI, stage-2 partitions over rows; XLA
-    inserts the collectives from the sharding annotations alone (the
-    scaling-book recipe: annotate, compile, let GSPMD place collectives).
+    GSPMD partitions the elementwise work over the coefficient axis and
+    inserts the collectives the NTT's butterfly rounds need across shards
+    (all-to-all / collective-permute), from the sharding annotations
+    alone.
     """
     one = _mult_relin_step(context.scheme)
-    # (size, k, n): shard the polynomial-coefficient axis; tables/keys ride
-    # as replicated jit arguments (see batched_multiply_relin note).
+    # (size, k, n): shard the polynomial-coefficient axis; tables/keys are
+    # replicated (see batched_multiply_relin note).
     spec = NamedSharding(mesh, P(None, None, axis_name))
     jitted = jax.jit(one, in_shardings=(spec, spec, None, None, None),
                      out_shardings=spec)
-    return _runner(jitted, context.first_context_data, relin_keys.keys[2],
-                   context.key_context_data)
+    return _runner(jitted, mesh, (context.first_context_data,
+                                  relin_keys.keys[2],
+                                  context.key_context_data),
+                   (None, None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +263,7 @@ def limb_sharded_galois(context: HeContext, galois_keys: GaloisKeys,
                         elt: int, mesh: Mesh, axis_name: str = "dp"):
     """Galois automorphism + key switch with the RNS-limb axis sharded:
     the permutation is elementwise per limb (no communication); the
-    key-switch decomposition contraction reduces over ICI (psum), like
+    key-switch decomposition contraction reduces across devices (psum), like
     the relinearization it shares _switch_key_core with. Returned runner
     takes the raw (2, k, n) data."""
     is_ntt = context.scheme in (SchemeType.ckks, SchemeType.bgv)
@@ -247,8 +273,10 @@ def limb_sharded_galois(context: HeContext, galois_keys: GaloisKeys,
     key_spec = NamedSharding(mesh, P(axis_name, None, None, None))
     in_shardings = (spec,) + (None,) * len(tables) + (key_spec, None, None)
     jitted = jax.jit(one, in_shardings=in_shardings, out_shardings=spec)
-    return _runner(jitted, *tables, galois_keys.keys[elt],
-                   context.first_context_data, context.key_context_data)
+    cd = context.first_context_data
+    return _runner(jitted, mesh, (*tables, galois_keys.keys[elt][:cd.limbs],
+                                  cd, context.key_context_data),
+                   in_shardings[1:])
 
 
 def dp_limb_sharded_galois(context: HeContext, galois_keys: GaloisKeys,
@@ -266,8 +294,10 @@ def dp_limb_sharded_galois(context: HeContext, galois_keys: GaloisKeys,
     key_spec = NamedSharding(mesh, P(tp_axis, None, None, None))
     in_shardings = (spec,) + (None,) * n_tab + (key_spec, None, None)
     jitted = jax.jit(batched, in_shardings=in_shardings, out_shardings=spec)
-    return _runner(jitted, *tables, galois_keys.keys[elt],
-                   context.first_context_data, context.key_context_data)
+    cd = context.first_context_data
+    return _runner(jitted, mesh, (*tables, galois_keys.keys[elt][:cd.limbs],
+                                  cd, context.key_context_data),
+                   in_shardings[1:])
 
 
 def limb_sharded_rotate(context: HeContext, galois_keys: GaloisKeys,
@@ -298,14 +328,13 @@ def limb_sharded_mod_switch(context: HeContext, mesh: Mesh,
     the dropped last limb, which GSPMD broadcasts from its owner
     (collective-permute / all-gather of one limb — k-fold smaller than the
     data). Runner takes raw (size, k, n) data, returns (size, k-1, n)."""
-    cd = context.get_context_data(
-        context.first_level if level is None else level)
+    cd = _level_cd(context, level)
     step = _mod_switch_step(context.scheme)
     spec = NamedSharding(mesh, P(None, axis_name, None))
     # the output has k-1 limbs (often not divisible by the mesh): let
     # GSPMD pick its layout rather than force a partition
     jitted = jax.jit(step, in_shardings=(spec, None))
-    return _runner(jitted, cd)
+    return _runner(jitted, mesh, (cd,), (None,))
 
 
 def dp_limb_sharded_mod_switch(context: HeContext, mesh: Mesh,
@@ -313,15 +342,14 @@ def dp_limb_sharded_mod_switch(context: HeContext, mesh: Mesh,
                                level: Optional[int] = None):
     """Batched mod switch under the 2-D regime: (B, size, k, n) ->
     (B, size, k-1, n), batches over dp, limbs over tp."""
-    cd = context.get_context_data(
-        context.first_level if level is None else level)
+    cd = _level_cd(context, level)
     step = _mod_switch_step(context.scheme)
     batched = jax.vmap(step, in_axes=(0, None))
     spec = NamedSharding(mesh, P(dp_axis, None, tp_axis, None))
     out_spec = NamedSharding(mesh, P(dp_axis, None, None, None))
     jitted = jax.jit(batched, in_shardings=(spec, None),
                      out_shardings=out_spec)
-    return _runner(jitted, cd)
+    return _runner(jitted, mesh, (cd,), (None,))
 
 
 # ---------------------------------------------------------------------------
@@ -332,8 +360,8 @@ def sharded_app_matmul(ev, mesh: Mesh, a2d, w2d, axis_name: str = "dp"):
     """The app-layer coefficient-packed matmul with its batch-block tile
     axis sharded over the mesh (BASELINE config 5: the LinearHelper
     pipeline across chips/hosts). Each device holds a slice of the input
-    batch blocks and computes its output tiles locally — zero collectives,
-    DCN-friendly across hosts. Weights/tables replicate.
+    batch blocks and computes its output tiles locally — zero collectives.
+    Weights/tables replicate.
 
     a2d: Cipher2d from helper.encrypt_inputs (batch-block rows);
     w2d: Plain2d from helper.encode_weights. Returns a Cipher2d with the

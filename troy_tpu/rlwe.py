@@ -6,7 +6,7 @@ Semantics-compatible with the reference's rlwe layer
   * asymmetric: c_j = pk_j * u + e_j with ternary u;
   * BGV noise is scaled by the plain modulus t.
 
-TPU-native sampling: every polynomial draw happens ON DEVICE from a
+Device sampling: every polynomial draw happens ON DEVICE from a
 counter-based threefry stream (jax.random) keyed by a 64-bit seed, so one
 encryption uploads exactly TWO u64 scalars — no host XOF expansion and no
 megabyte buffer transfer (the reference's device path likewise samples on
@@ -172,7 +172,7 @@ def encrypt_zero_symmetric_reference(
     then CBD noise from the bootstrap stream), so the resulting
     ciphertext is bit-identical to the reference's for the same seed.
     (The default device-threefry path in ``encrypt_zero_symmetric`` is
-    the TPU-native fast path; this one exists for cross-implementation
+    the device fast path; this one exists for cross-implementation
     reproducibility.)"""
     n = cd.n
     mods = list(cd.coeff_values)

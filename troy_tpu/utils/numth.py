@@ -160,7 +160,7 @@ def try_minimal_primitive_root(degree: int, modulus: int) -> Tuple[bool, int]:
 
 @lru_cache(maxsize=None)
 def minimal_primitive_root(degree: int, modulus: int) -> int:
-    # deterministic per (degree, modulus); cached because context/NTT/MXU
+    # deterministic per (degree, modulus); cached because context and NTT
     # table construction each ask for the same root (the search walks
     # degree/2 modmuls in Python)
     ok, r = try_minimal_primitive_root(degree, modulus)

@@ -7,7 +7,7 @@ with punctured products, base-change matrices, and the BEHZ tool bases
 
 Everything here is computed once per context level with Python big ints and
 stored as immutable tuples — the device ops (troy_tpu/ops/rns.py) consume
-these as *static* trace-time constants, so the TPU executables carry no RNS
+these as *static* trace-time constants, so the device executables carry no RNS
 tables in memory at all.
 """
 
@@ -175,9 +175,8 @@ class RnsTool:
     ``internal_prime_bits`` sets the bit width of the auxiliary-base primes
     (B, m_sk, gamma). The default (61, INTERNAL_MOD_BIT_COUNT) reproduces the
     reference's choice (rns.cpp:628-630 getPrimes(61, ...)) word for word.
-    Narrower widths are a TPU perf knob: the MXU NTT runs ceil(bits/8) byte
-    planes per limb, so 40-bit aux primes run 5x5 plane pairs where 61-bit
-    primes need 8x8 — the BEHZ lift NTTs over Bsk shrink ~2.5x. Correctness
+    Narrower widths are an opt-in mode whose speed on the GPU is not
+    measured yet. Correctness
     is preserved by sizing the base on EXACT products: the BEHZ bound
     requires prod(Bsk) > n * t * Q * (1+rho)^2 (rho ~ k/m_tilde); we enforce
     the strictly stronger prod(B) * m_sk > 2^33 * t * Q, which covers every
